@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, loaded with ``ctypes``.
+Builds run at first use, one ``nvcc`` process per source, all started
+together, into ``kernels/build/`` (listed in ``.gitignore``).  A
+library's file name carries a digest of its sources and flags, so an
+edited source never loads a stale build.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+KERNEL_NAMES = ("paged_attention", "tree_attention", "flash_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, the toolkit's default
+    location, or ``nvcc`` on ``PATH``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    """Where ``name``'s library lives: keyed by a digest of the kernel's
+    source, the shared header and the compiler flags."""
+    h = hashlib.sha256()
+    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNEL_NAMES, *, ptxas_info: bool = False
+          ) -> Dict[str, str]:
+    """Compile every kernel of ``names`` that has no current library.
+
+    Starts one ``nvcc`` per source, all at once, and waits for all.
+    Returns ``{name: compiler output}`` (the ``-Xptxas -v`` register and
+    shared-memory report when ``ptxas_info``).  Raises with the
+    compiler's output if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists() and not ptxas_info:
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
+        if ptxas_info:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)      # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it if needed."""
+    lib: Optional[ctypes.CDLL] = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
