@@ -14,7 +14,9 @@ exits non-zero):
   3. parity  — each kernel against its plain PyTorch version on the card
                at Llama-3.2-1B head shapes (H 32, K 8, hd 64, page 16):
                ragged lengths, -1 table padding, dump entries, a fully
-               masked row, float32 and bfloat16;
+               masked row, tree batches of 48 and 160 leaves (the
+               latter in leaf chunks), prefill at hd 128, float32 and
+               bfloat16;
   4. main    — after an untimed warm-up (one prefill, two decode
                steps per mode), ETS search (``run_search_many``) over 4
                seeded prompts at the full width of ``llama3.2-1b``
@@ -28,9 +30,12 @@ exits non-zero):
                that take the step's device time;
   6. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
-               flushed between launches) beside its bound and, for
-               prefill, one ``scaled_dot_product_attention`` call as a
-               yardstick (the port never calls it);
+               flushed between launches; ``ms`` with the host's enqueue
+               time, ``device_ms`` without, see ``Timer``) beside its
+               bound and, for prefill, one ``scaled_dot_product_attention``
+               call as a yardstick (the port never calls it), also at
+               three shapes off the main path; the tree kernel also at
+               each ``pages_per_split`` of a sweep;
 
 then the kernels line ``{"kernels": [...]}`` and, last, the device line.
 Imports nothing of JAX and nothing of the JAX package.
@@ -81,19 +86,32 @@ def fail(msg: str) -> None:
 
 class Timer:
     """Per-launch CUDA-event timing with the L2 flushed between launches
-    (the decode and prefill callers meet their operands cold)."""
+    (the decode and prefill callers meet their operands cold).
+
+    ``ms`` starts its event right after the flush, so it also counts
+    the time the card waits while the host issues the call (the
+    wrapper's checks, allocations and launches) whenever that outlasts
+    the flush.  ``device_ms`` is device time: after the flush the card
+    spins for about a millisecond (``torch.cuda._sleep``) while the host
+    enqueues the call, so the start event fires only when the call's
+    first kernel is already queued."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
 
-    def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
+    def ms(self, fn, reps: int = 20, warmup: int = 3,
+           spin: bool = False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(reps):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -102,6 +120,9 @@ class Timer:
             b.synchronize()
             total += a.elapsed_time(b)
         return total / reps
+
+    def device_ms(self, fn) -> float:
+        return self.ms(fn, spin=True)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +147,8 @@ def paged_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512,
             torch.as_tensor(lens, device="cuda"))
 
 
-def tree_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512):
+def tree_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512,
+                problems=4):
     from repro_torch.kvcache import build_tree_metadata
     kp = torch.as_tensor(rng.normal(size=(P, S, K, hd)), dtype=dtype,
                          device="cuda")
@@ -134,11 +156,11 @@ def tree_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512):
                          device="cuda")
     q = torch.as_tensor(rng.normal(size=(B, H, hd)), dtype=dtype,
                         device="cuda")
-    # 4 problems x 7 leaves share a 10-page prefix each; each leaf owns a
-    # ragged tail; the last 4 rows are inactive (fully masked)
+    # `problems` x 7 leaves share a 10-page prefix per problem; each leaf
+    # owns a ragged tail; the rows past them are inactive (fully masked)
     free = list(rng.permutation(P - 1))
     tables, lengths = [], []
-    for _ in range(4):
+    for _ in range(problems):
         prefix = [int(free.pop()) for _ in range(10)]
         for _ in range(7):
             tail_tok = int(rng.integers(1, 3 * S))
@@ -240,8 +262,11 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build(ptxas_info=True)
     secs = time.perf_counter() - t0
-    regs = {name: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln]
+    # per kernel instance (mangled entry name): registers, then spills
+    regs = {name: [ln.split("ptxas info    : ")[-1].strip()
+                   for ln in log.splitlines()
+                   if "Compiling entry" in ln or "registers" in ln
+                   or "spill" in ln]
             for name, log in logs.items()}
     emit({"phase": "build", "seconds": round(secs, 3), "ptxas": regs})
 
@@ -273,18 +298,25 @@ def phase_parity(torch, np):
               "ragged, -1 padded, one zero-length row")
         if bool(out[-1].ne(0).any()):
             fail("paged_attention: zero-length row is not zero")
-        a = tree_inputs(torch, np, rng, dt)
-        out = ops.tree_attention(*a, scale=scale)
-        check("tree_attention", dt, out,
-              ref.tree_attention_ref(*a, scale=scale),
-              "shared prefixes, dump entries, 4 fully masked rows")
-        if bool(out[-4:].ne(0).any()):
-            fail("tree_attention: fully masked rows are not zero")
-        for S in (8, 256):            # a bucket below the 32-key tile, and
-            a = flash_inputs(torch, rng, dt, S=S)    # the main path's one
+        # 28, 42 and 133 live leaves; at B = 160 the leaves' state does
+        # not fit one CTA's shared memory, so the split pass cuts the
+        # batch into leaf chunks and the last chunk ends in masked rows
+        for B, problems, P in ((32, 4, 512), (48, 6, 512), (160, 19, 1024)):
+            a = tree_inputs(torch, np, rng, dt, B=B, problems=problems, P=P)
+            out = ops.tree_attention(*a, scale=scale)
+            check("tree_attention", dt, out,
+                  ref.tree_attention_ref(*a, scale=scale),
+                  f"B={B}, shared prefixes, dump entries, "
+                  f"{B - 7 * problems} fully masked rows")
+            if bool(out[7 * problems:].ne(0).any()):
+                fail("tree_attention: fully masked rows are not zero")
+        for S, hd in ((8, 64), (256, 64), (256, 128)):
+            # a bucket below the 32-key tile, the main path's bucket, and
+            # the widest head dim the kernel takes
+            a = flash_inputs(torch, rng, dt, S=S, hd=hd)
             check("flash_prefill", dt, ops.flash_prefill(*a, scale=scale),
                   ref.flash_prefill_ref(*a, scale=scale),
-                  f"causal, S={S}")
+                  f"causal, S={S}, hd={hd}")
         a = flash_inputs(torch, rng, dt, S=128)
         check("flash_prefill", dt,
               ops.flash_prefill(*a, scale=scale, window=48),
@@ -435,37 +467,72 @@ def phase_replay(torch, recorder, launches, timer):
         want = plain[k.name](*args, scale=kw["scale"])
         err = check(k.name, args[0].dtype, out, want, "main-path inputs")
         kernel_ms = timer.ms(lambda: fn(*args, **kw))
+        device_ms = timer.device_ms(lambda: fn(*args, **kw))
         plain_ms = timer.ms(lambda: plain[k.name](*args, scale=kw["scale"]))
         library_ms = None
         extra = {}
         if k.name == "tree_attention":
-            # the leaf tile trades CTAs (parallelism) against re-reading
-            # shared pages once per tile: time the kernel at each tile
-            extra["ms_by_block_b"] = {
-                bb: timer.ms(lambda: fn(*args, **dict(kw, block_b=bb)))
-                for bb in (1, 2, 4, 8, 16, 32)}
+            # pages per split trades CTAs (parallelism) and partials for
+            # the combine against the length of each CTA's page stream
+            extra["pages_per_split_default"] = ops.TREE_PAGES_PER_SPLIT
+            extra["device_ms_by_pages_per_split"] = {
+                pps: timer.device_ms(lambda: fn(*args, **dict(
+                    kw, pages_per_split=pps)))
+                for pps in (1, 2, 4, 8, 16, 32)}
         if k.name == "flash_prefill":
-            q, kk, vv = args
-            G = q.shape[2] // kk.shape[2]
-            qt = q.transpose(1, 2).contiguous()
-            kt = kk.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-            vt = vv.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                               scale=kw["scale"]))
+            sdpa = sdpa_call(torch, *args, scale=kw["scale"])
+            library_ms = timer.ms(sdpa)
+            extra["library_device_ms"] = timer.device_ms(sdpa)
+            extra["off_path"] = flash_off_path(torch, timer)
         nbytes, flops = work[k.name](args, kw["scale"])
         b_ms, b_by = bound_ms(nbytes, flops, args[0].dtype)
         shapes = [list(a.shape) for a in args]
         emit({"phase": "replay", "kernel": k.name, "shapes": shapes,
               "dtype": str(args[0].dtype), "bytes": nbytes, "flops": flops,
-              "ms": kernel_ms, "plain_ms": plain_ms,
+              "ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": b_ms, **extra})
         lines.append({"name": k.name, "route": "cuda", "source": k.source,
                       "replaces": k.replaces, "launches": launches[k.name],
                       "max_abs_err": err, "ms": kernel_ms,
-                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": library_ms})
+                      "device_ms": device_ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms})
     return lines
+
+
+def sdpa_call(torch, q, k, v, *, scale):
+    """One ``scaled_dot_product_attention`` call over the same packed
+    inputs (kv heads repeated to the query heads), as a yardstick."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale)
+
+
+def flash_off_path(torch, timer):
+    """Flash prefill against SDPA at shapes the main path does not give
+    it: the widest head dim, a 1024-token bucket, and bf16."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(1)
+    rows = []
+    for B, S, hd, dt in ((2, 256, 128, torch.float32),
+                         (4, 1024, 64, torch.float32),
+                         (4, 256, 64, torch.bfloat16)):
+        a = flash_inputs(torch, rng, dt, B=B, S=S, hd=hd)
+        scale = hd ** -0.5
+        err = check("flash_prefill", dt, ops.flash_prefill(*a, scale=scale),
+                    ref.flash_prefill_ref(*a, scale=scale),
+                    f"off-path timing, B={B}, S={S}, hd={hd}")
+        sdpa = sdpa_call(torch, *a, scale=scale)
+        rows.append({"shape": [B, S, 32, 8, hd],
+                     "dtype": str(dt).replace("torch.", ""),
+                     "max_abs_err": err,
+                     "device_ms": timer.device_ms(
+                         lambda: ops.flash_prefill(*a, scale=scale)),
+                     "library_device_ms": timer.device_ms(sdpa)})
+    return rows
 
 
 def phase_profile(torch, models, prompts):
@@ -501,6 +568,10 @@ def phase_profile(torch, models, prompts):
           "device_busy_ms_per_step": busy_ms / steps,
           "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
           "device_events": sum(n for _, n in by_name.values()),
+          # the tree kernel's two launches (split pass + combine pass)
+          "tree_attention_ms_per_step": sum(
+              ms for name, (ms, _) in by_name.items()
+              if name.startswith("void tree_")) / steps,
           "top": [{"name": name[:90], "ms_per_step": ms / steps,
                    "launches_per_step": n / steps}
                   for name, (ms, n) in top]})

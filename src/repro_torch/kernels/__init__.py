@@ -2,8 +2,10 @@
 
   paged_attention — decode over block-tabled paged KV
   tree_attention  — DeFT-style decode: each unique tree page read once
-                    for all descendant leaves of a leaf tile
+                    per kv head for all its descendant leaves (a split
+                    pass over the page list, then a combine pass)
   flash_prefill   — causal / sliding-window flash attention for prefill
+                    on the tensor cores
 
 ``csrc/`` holds the CUDA sources, ``build.py`` compiles them with nvcc
 at first use, ``ops.py`` holds the wrappers (kernel on a CUDA tensor,

@@ -48,9 +48,10 @@ def find_nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """Where ``name``'s library lives: keyed by a digest of the kernel's
-    source, the shared header and the compiler flags."""
+    source, every header under ``csrc/`` and the compiler flags."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("**/*.cuh"))):
+        h.update(str(f.relative_to(CSRC)).encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

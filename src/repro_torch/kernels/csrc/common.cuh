@@ -43,6 +43,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Asynchronous 16-byte global -> shared copies (sm_80+).  `src_bytes`
+// below 16 zero-fills the rest of the destination (0 = all zeros, the
+// source is then not read).  Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src,
+                                           int src_bytes = 16) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs
 // more than the default 48 KB.
 template <typename K>

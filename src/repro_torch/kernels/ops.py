@@ -58,7 +58,7 @@ class Kernel:
 
 PAGED = Kernel("paged_attention", [_P] * 6 + [_I] * 6 + [_F, _I, _P],
                "src/repro/kernels/paged_attention.py:116")
-TREE = Kernel("tree_attention", [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+TREE = Kernel("tree_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P],
               "src/repro/kernels/tree_attention.py:217")
 FLASH = Kernel("flash_prefill", [_P] * 4 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/flash_prefill.py:98")
@@ -92,6 +92,13 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """The kernels stage operands with 16-byte async copies."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
 
 
 def _dtype_code(q: torch.Tensor) -> int:
@@ -136,21 +143,29 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return out
 
 
-# leaf tile of the tree kernel: a CTA serves block_b leaves x G query
-# heads and reads each page its leaves need once.  Smaller tiles give
-# more CTAs (ceil(B/block_b) * K) at the cost of reading a shared page
-# once per tile; on an H100 at the llama3.2-1b decode shapes (32 rows,
-# 8 KV heads, fp32, see PERF.md) tiles of 1-2 leaves ran ~1.6x faster
-# than tiles of 8
-TREE_BLOCK_B = 2
+# entries of page_list each CTA of the tree kernel's split pass walks.
+# Fewer give more CTAs ((live entries / pages_per_split) x K) and more
+# partials for the combine pass to merge; more give each CTA a longer
+# double-buffered page stream.  chip_smoke.py's replay sweep on an NVIDIA
+# H100 80GB HBM3 (700 W), on the largest tree call of its llama3.2-1b
+# main path (32 rows, 8 kv heads, 256 live pages, fp32), read 0.086,
+# 0.067, 0.059, 0.055, 0.084 and 0.117 ms at 1, 2, 4, 8, 16 and 32
+# pages per split (PERF.md).
+TREE_PAGES_PER_SPLIT = 8
 
 
 def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
-                   scale: float, block_b: Optional[int] = None
-                   ) -> torch.Tensor:
+                   scale: float, pages_per_split: Optional[int] = None,
+                   n_live: Optional[int] = None) -> torch.Tensor:
     """q (B,H,hd); k/v_pool (P,S,K,hd); page_list (N,) int32; page_mask
-    (N,B) int8; page_lens (N,) int32.  Returns (B,H,hd).  ``block_b`` is
-    the kernel's leaf tile (None = ``TREE_BLOCK_B``)."""
+    (N,B) int8; page_lens (N,) int32.  Returns (B,H,hd).
+
+    ``pages_per_split`` is the split pass's page run per CTA (None =
+    ``TREE_PAGES_PER_SPLIT``).  ``n_live``, when the caller knows it on
+    the host, is the count of leading ``page_list`` entries that may be
+    live (every later entry must be a zero-length dump entry); the grid
+    then covers only those.  Neither changes the result.
+    """
     if _on_cpu(q):
         return tree_attention_ref(q, k_pool, v_pool, page_list, page_mask,
                                   page_lens, scale=scale)
@@ -165,19 +180,36 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     _check("page_list", page_list, dev, torch.int32, (N,))
     _check("page_mask", page_mask, dev, torch.int8, (N, B))
     _check("page_lens", page_lens, dev, torch.int32, (N,))
+    _check_aligned(q, k_pool, v_pool)
     G = H // K if K else 0
-    if H % K or not 1 <= G <= 32 or hd > 256:
-        raise ValueError(f"tree_attention takes G = H/K in 1..32 and "
-                         f"hd <= 256, got H={H} K={K} hd={hd}")
-    bb = TREE_BLOCK_B if block_b is None else int(block_b)
-    if bb < 1:
-        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    if H % K or not 1 <= G <= 32 or hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"tree_attention takes G = H/K in 1..32 and hd a "
+                         f"multiple of 8 up to 256, got H={H} K={K} hd={hd}")
+    pps = TREE_PAGES_PER_SPLIT if pages_per_split is None \
+        else int(pages_per_split)
+    if pps < 1:
+        raise ValueError(f"pages_per_split must be >= 1, got "
+                         f"{pages_per_split}")
+    n_cover = N if n_live is None else max(0, min(int(n_live), N))
+    pps = max(1, min(pps, n_cover))
+    n_splits = -(-n_cover // pps)
     out = torch.empty_like(q)
+    # one scratch buffer for the split partials: acc (n_splits, B, H, hd)
+    # and (m, l) (n_splits, B, H, 2) in float32, hit flags (n_splits, B)
+    acc_bytes = n_splits * B * H * hd * 4
+    ml_bytes = n_splits * B * H * 2 * 4
+    scratch = torch.empty(acc_bytes + ml_bytes + n_splits * B,
+                          dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     TREE.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_list.data_ptr(), page_mask.data_ptr(),
-                page_lens.data_ptr(), out.data_ptr(), B, N, S, K, G, hd,
-                min(bb, max(B, 1)), float(scale), code, _stream(dev))
+                page_lens.data_ptr(), out.data_ptr(), base, base + acc_bytes,
+                base + acc_bytes + ml_bytes, B, n_cover, S, K, G, hd, pps,
+                float(scale), code, _stream(dev))
     return out
+
+
+FLASH_HEAD_DIMS = (32, 64, 96, 128)    # the kernel's template instances
 
 
 def flash_prefill(q, k, v, *, scale: float, causal: bool = True,
@@ -198,9 +230,10 @@ def flash_prefill(q, k, v, *, scale: float, causal: bool = True,
     _check("q", q, dev, dt, (B, S, H, hd))
     _check("k", k, dev, dt, (B, S, K, hd))
     _check("v", v, dev, dt, (B, S, K, hd))
-    if H % K or not 1 <= H // K <= 128 or hd not in (32, 64):
-        raise ValueError(f"flash_prefill takes G = H/K in 1..128 and hd in "
-                         f"(32, 64), got H={H} K={K} hd={hd}")
+    _check_aligned(q, k, v)
+    if H % K or H < K or hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_prefill takes G = H/K >= 1 and hd in "
+                         f"{FLASH_HEAD_DIMS}, got H={H} K={K} hd={hd}")
     out = torch.empty_like(q)
     FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, K, H // K, hd, int(bool(causal)), int(window),

@@ -201,12 +201,15 @@ class PagedEngine:
                                        scale=self.scale)
         return attend
 
-    def _tree_attend(self, page_list, page_mask, page_lens):
+    def _tree_attend(self, page_list, page_mask, page_lens, n_live):
         """Tree decode: attention walks the unique live pages of the
-        whole tree; a shared prefix page is streamed once per leaf tile."""
+        whole tree; a shared prefix page is streamed once per kv head.
+        ``n_live`` (the host-known count of live entries, which lead the
+        page list) trims the kernel's grid."""
         def attend(l, q, pk, pv):
             return ops.tree_attention(q, pk[l], pv[l], page_list, page_mask,
-                                      page_lens, scale=self.scale)
+                                      page_lens, scale=self.scale,
+                                      n_live=n_live)
         return attend
 
     # ------------------------------------------------------------------
@@ -487,7 +490,8 @@ class DecodeStream:
             eng._count_streamed_pages(live, meta.n_unique, meta.n_logical)
             attend = eng._tree_attend(eng._put(meta.page_list),
                                       eng._put(meta.page_mask),
-                                      eng._put(meta.page_lens))
+                                      eng._put(meta.page_lens),
+                                      meta.n_unique)
         else:
             n_logical = sum(len(eng.alloc.seqs[i].block_table) for i in live)
             eng._count_streamed_pages(live, n_logical, n_logical)

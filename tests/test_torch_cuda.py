@@ -62,42 +62,94 @@ def test_paged_kernel(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_b", [None, 1, 5])
-def test_tree_kernel(cuda, block_b):
-    B, H, K, hd, S, P = 12, 32, 8, 64, 16, 64
+@pytest.mark.parametrize("B", [12, 48])
+@pytest.mark.parametrize("pps", [1, None, "N"])
+def test_tree_kernel(cuda, pps, B):
+    """Shared prefixes, dump entries and fully masked rows; B = 48 puts
+    more than 32 leaves (two mask words) in one CTA."""
+    H, K, hd, S, P = 32, 8, 64, 16, 64
     q, kp, vp = (_rand((B, H, hd), torch.float32, cuda),
                  _rand((P, S, K, hd), torch.float32, cuda),
                  _rand((P, S, K, hd), torch.float32, cuda))
-    tables = [[3, 4, 9], [3, 4, 10], [3, 5], [3, 5, 11, 12]] * 2 + [[]] * 4
-    lengths = [40, 35, 32, 60] * 2 + [0] * 4
+    n_act = 2 * B // 3
+    tables = ([[3, 4, 9], [3, 4, 10], [3, 5], [3, 5, 11, 12]]
+              * (n_act // 4) + [[]] * (B - n_act))
+    lengths = [40, 35, 32, 60] * (n_act // 4) + [0] * (B - n_act)
     meta = build_tree_metadata(tables, lengths, S, pad_page=P - 1,
                                check=True)
     args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
         meta.page_list, meta.page_mask, meta.page_lens))
-    before = ops.TREE.launches
-    out = ops.tree_attention(*args, scale=0.125, block_b=block_b)
-    assert ops.TREE.launches == before + 1
-    torch.testing.assert_close(out, tree_attention_ref(*args, scale=0.125),
-                               rtol=3e-5, atol=3e-5)
-    assert torch.all(out[8:] == 0)
+    pps = meta.page_list.shape[0] if pps == "N" else pps
+    want = tree_attention_ref(*args, scale=0.125)
+    for n_live in (None, meta.n_unique):
+        before = ops.TREE.launches
+        out = ops.tree_attention(*args, scale=0.125, pages_per_split=pps,
+                                 n_live=n_live)
+        assert ops.TREE.launches == before + 1
+        torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
+        assert torch.all(out[n_act:] == 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,window,dtype", [(8, 0, torch.float32),
-                                            (256, 0, torch.float32),
-                                            (128, 48, torch.float32),
-                                            (64, 0, torch.bfloat16)])
-def test_flash_kernel(cuda, S, window, dtype):
-    q, k, v = (_rand((2, S, 32, 64), dtype, cuda),
-               _rand((2, S, 8, 64), dtype, cuda),
-               _rand((2, S, 8, 64), dtype, cuda))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pps", [1, None])
+def test_tree_kernel_leaf_chunks(cuda, pps, hd):
+    """160 leaves: their state does not fit one CTA's shared memory, so
+    the split pass cuts the batch into leaf chunks (grid z > 1).  Masked
+    rows lie inside every chunk, and the last chunk ends in them."""
+    B, H, K, S, P = 160, 32, 8, 16, 256
+    q, kp, vp = (_rand((B, H, hd), torch.float32, cuda),
+                 _rand((P, S, K, hd), torch.float32, cuda),
+                 _rand((P, S, K, hd), torch.float32, cuda))
+    masked = [b % 5 == 4 or b >= 150 for b in range(B)]
+    tables = [[] if masked[b] else [2 * (b // 10), 2 * (b // 10) + 1, 40 + b]
+              for b in range(B)]
+    lengths = [0 if masked[b] else 2 * S + 1 + b % S for b in range(B)]
+    meta = build_tree_metadata(tables, lengths, S, pad_page=P - 1,
+                               check=True)
+    args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
+        meta.page_list, meta.page_mask, meta.page_lens))
+    out = ops.tree_attention(*args, scale=hd ** -0.5, pages_per_split=pps,
+                             n_live=meta.n_unique)
+    torch.testing.assert_close(
+        out, tree_attention_ref(*args, scale=hd ** -0.5), rtol=3e-5,
+        atol=3e-5)
+    assert torch.all(out[torch.as_tensor(masked, device=cuda)] == 0)
+
+
+@pytest.mark.cuda
+def test_tree_kernel_repeats_bitwise(cuda):
+    """The combine merges splits in a fixed order with no atomics."""
+    B, H, K, hd, S, P = 8, 8, 2, 32, 8, 32
+    q, kp, vp = (_rand((B, H, hd), torch.float32, cuda),
+                 _rand((P, S, K, hd), torch.float32, cuda),
+                 _rand((P, S, K, hd), torch.float32, cuda))
+    meta = build_tree_metadata([[1, 2, 3 + b] for b in range(B)],
+                               [20 + b for b in range(B)], S,
+                               pad_page=P - 1, check=True)
+    args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
+        meta.page_list, meta.page_mask, meta.page_lens))
+    outs = [ops.tree_attention(*args, scale=0.2, pages_per_split=1)
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("S,window", [(8, 0), (256, 0), (128, 48)])
+def test_flash_kernel(cuda, S, window, hd, dtype):
+    q, k, v = (_rand((2, S, 32, hd), dtype, cuda),
+               _rand((2, S, 8, hd), dtype, cuda),
+               _rand((2, S, 8, hd), dtype, cuda))
+    scale = hd ** -0.5
     before = ops.FLASH.launches
-    out = ops.flash_prefill(q, k, v, scale=0.125, window=window)
+    out = ops.flash_prefill(q, k, v, scale=scale, window=window)
     assert ops.FLASH.launches == before + 1
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(
         out.float(),
-        flash_prefill_ref(q, k, v, scale=0.125, window=window).float(),
+        flash_prefill_ref(q, k, v, scale=scale, window=window).float(),
         rtol=tol, atol=tol)
 
 
@@ -113,7 +165,7 @@ def test_wrappers_reject_bad_operands(cuda):
         ops.paged_attention(q, kp.transpose(1, 2).contiguous()
                             .transpose(1, 2), kp, bt.int(), lens, scale=0.1)
     with pytest.raises(ValueError, match="hd"):
-        x = _rand((1, 8, 4, 128), torch.float32, cuda)
+        x = _rand((1, 8, 4, 48), torch.float32, cuda)
         ops.flash_prefill(x, x, x, scale=0.1)
 
 

@@ -19,8 +19,9 @@ from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.tree_attention import tree_attention as jax_tree
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (flash_prefill_ref, paged_attention_ref,
-                                     tree_attention_ref)
+from repro_torch.kernels.ref import (NEG_INF, flash_prefill_ref,
+                                     paged_attention_ref, tree_attention_ref,
+                                     tree_attention_split_ref)
 from repro_torch.kvcache import build_tree_metadata
 
 RNG = np.random.default_rng(11)
@@ -159,6 +160,48 @@ def test_tree_fully_masked_tile_is_inert():
     _close(out, ref, 3e-5)
 
 
+@pytest.mark.parametrize("case", TREE_CASES)
+@pytest.mark.parametrize("pps", [1, 2, 3, "N", "N+3"])
+def test_tree_split_matches_pallas(case, pps):
+    """The split + combine decomposition of the CUDA tree kernel, at
+    every run length from one page per split to more than N."""
+    B, H, K, hd, S, P, N = case
+    pps = {"N": N, "N+3": N + 3}.get(pps, pps)
+    ja, ta = _tree_inputs(B, H, K, hd, S, P, N)
+    out = jax_tree(*ja, scale=hd ** -0.5, interpret=True)
+    split = tree_attention_split_ref(*ta, scale=hd ** -0.5,
+                                     pages_per_split=pps)
+    _close(out, split, 3e-5)
+
+
+@pytest.mark.parametrize("pps", [1, 2, 8, 11])
+def test_tree_split_dump_splits_and_masked_rows(pps):
+    """Padded metadata: with 2 pages per split, split 3 holds only dump
+    entries; leaf 0 (entries 0, 1) has no page in splits 1-3; rows 3-5
+    are fully masked and come out exactly zero."""
+    P, S, K, H, hd, B = 16, 8, 2, 4, 32, 6
+    (jk, tk), (jv, tv), (jq, tq) = (_rand((P, S, K, hd)),
+                                    _rand((P, S, K, hd)), _rand((B, H, hd)))
+    meta = build_tree_metadata([[3, 4], [3, 5], [3, 6, 7], [], [], []],
+                               [14, 12, 19, 0, 0, 0], S, pad_page=P - 1,
+                               check=True)
+    assert meta.page_list.shape[0] == 8 and list(meta.page_lens[5:]) == [0] * 3
+    ints = [_ints(a) for a in (meta.page_list, meta.page_mask,
+                               meta.page_lens)]
+    out = jax_tree(jq, jk, jv, *(j for j, _ in ints), scale=hd ** -0.5,
+                   interpret=True)
+    split = tree_attention_split_ref(tq, tk, tv, *(t for _, t in ints),
+                                     scale=hd ** -0.5, pages_per_split=pps)
+    _close(out, split, 3e-5)
+    assert torch.all(split[3:] == 0)
+
+
+def test_tree_split_rejects_empty_runs():
+    _, ta = _tree_inputs(4, 4, 2, 32, 8, 16, 5)
+    with pytest.raises(ValueError, match="pages_per_split"):
+        tree_attention_split_ref(*ta, scale=0.2, pages_per_split=0)
+
+
 def test_tree_equals_paged_for_disjoint_paths():
     """With no sharing, tree attention == per-sequence paged attention
     (both plain versions, against the reference paged kernel)."""
@@ -205,6 +248,67 @@ def test_flash_plain_matches_pallas(case):
     ref = flash_prefill_ref(tq, tk, tv, scale=hd ** -0.5, causal=causal,
                             window=window)
     _close(out, ref, 2e-5)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, on the low 13 mantissa bits."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = ((bits + 0x1000) & ~0x1FFF) & 0xFFFFFFFF
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _tc_matmul(a, b, passes):
+    """A tensor-core product of float32 operands: TF32 inputs, exact
+    products, fp32 result; ``passes`` 3 is the 3xTF32 split
+    big.big + big.small + small.big, 1 a single TF32 pass."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.double() @ bb.double()
+    if passes == 3:
+        a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+        out = out + ab.double() @ b_s.double() + a_s.double() @ bb.double()
+    return out.float()
+
+
+def _flash_tensor_core(q, k, v, scale, passes):
+    """Causal attention with both products as the fp32 CUDA kernel runs
+    them on the tensor cores.  q (B,S,H,hd), k/v (B,S,K,hd)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qh = q.permute(0, 2, 1, 3)                               # (B,H,S,hd)
+    kh = k.repeat_interleave(G, dim=2).permute(0, 2, 3, 1)   # (B,H,hd,S)
+    vh = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)   # (B,H,S,hd)
+    s = _tc_matmul(qh, kh, passes) * scale
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(causal, s, torch.tensor(NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(causal, torch.exp(s - m), 0.0)
+    o = _tc_matmul(p, vh, passes) / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11 + 2 ** -12,
+                      -(1.0 + 3 * 2 ** -11), 3.0], dtype=torch.float32)
+    want = [1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -9), 3.0]
+    assert _tf32(x).tolist() == want
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_flash_tf32_passes_against_pallas(passes, within):
+    """At hd 64, flash prefill with 3xTF32 products stays inside the
+    reference's 2e-5 fp32 tolerance; one TF32 pass does not."""
+    B, S, H, K, hd = 1, 128, 8, 4, 64
+    (jq, tq), (jk, tk), (jv, tv) = (_rand((B, S, H, hd)),
+                                    _rand((B, S, K, hd)),
+                                    _rand((B, S, K, hd)))
+    want = np.asarray(jax_flash(jq, jk, jv, scale=hd ** -0.5, causal=True,
+                                block_q=64, block_k=64, interpret=True),
+                      np.float32)
+    got = _flash_tensor_core(tq, tk, tv, hd ** -0.5, passes).numpy()
+    err = float(np.abs(got - want).max())
+    assert (err <= 2e-5) == within, err
 
 
 # ---------------------------------------------------------------------------
