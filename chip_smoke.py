@@ -14,9 +14,12 @@ exits non-zero):
   3. parity  — each kernel against its plain PyTorch version on the card
                at Llama-3.2-1B head shapes (H 32, K 8, hd 64, page 16):
                ragged lengths, -1 table padding, dump entries, a fully
-               masked row, tree batches of 48 and 160 leaves (the
-               latter in leaf chunks), prefill at hd 128, float32 and
-               bfloat16;
+               masked row, block tables of 160 pages that span many
+               splits (-1 holes, a -1-only split, rows ending mid-page,
+               zero-length and one-page rows) at several
+               ``PAGED_PAGES_PER_SPLIT``, tree batches of 48 and 160
+               leaves (the latter in leaf chunks), prefill at hd 128,
+               float32 and bfloat16;
   4. main    — after an untimed warm-up (one prefill, two decode
                steps per mode), ETS search (``run_search_many``) over 4
                seeded prompts at the full width of ``llama3.2-1b``
@@ -25,23 +28,34 @@ exits non-zero):
                each mode and read just after; every kernel must have
                launched.  The two modes' per-step decode logits must
                agree, every page must be free at the end;
-  5. profile — ``torch.profiler`` over 8 tree-mode decode steps of the
+  5. sampling — the threefry known answers on the card (key, split,
+               fold_in, bits, two categorical draws over 128256 zeros,
+               exact), the time of one 32-row draw against a greedy
+               argmax, then a sampled ETS search (temperature 1.0, width
+               8, 2 steps) in paged and in tree mode: token agreement
+               between the modes and sampled decode tok/s; where the
+               modes draw different tokens, the gap between the two
+               candidates' perturbed logits must stay within 1e-4;
+  6. profile — ``torch.profiler`` over 8 tree-mode decode steps of the
                same sweep (32 rows): device busy share and the kernels
                that take the step's device time;
-  6. replay  — each kernel against its plain version on the largest
+  7. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
                bound and, for prefill, one ``scaled_dot_product_attention``
                call as a yardstick (the port never calls it), also at
-               three shapes off the main path; the tree kernel also at
-               each ``pages_per_split`` of a sweep;
+               three shapes off the main path; the paged and tree kernels
+               also at each pages-per-split of a sweep, the paged kernel
+               also beside the bound of the logical bytes its rows
+               stream;
 
 then the kernels line ``{"kernels": [...]}`` and, last, the device line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -64,9 +78,26 @@ TOL = {("paged_attention", "float32"): 2e-5,
        ("tree_attention", "float32"): 3e-5,
        ("flash_prefill", "float32"): 2e-5}
 TOL_BF16 = 2e-2
+# bf16 on the long paged tables: the kernel and the plain version both
+# compute in fp32 and round once to bf16, so each element is held to the
+# fp32 tolerance plus two bf16 ulps of its value (2 * 2**-7 relative);
+# 2e-2 is near a typical output of rows this long and would not see a
+# dropped page
+RTOL_BF16_ROUNDED = 2 * 2 ** -7
 # paged vs tree decode logits at full width: both float32, summed in
 # another order over 16 layers; logits are O(1)
 TOL_MODES = 2e-3
+# sampled decode: where the modes draw different tokens, the two
+# candidates' perturbed logits may differ by no more than this (the
+# modes' logits differ by ~1e-5, the noise by a few ulp)
+TOL_SAMPLED_GAP = 1e-4
+
+# jax 0.9.0's answers (jax_threefry_partitionable on), which the port's
+# sampler must give exactly
+KNOWN_SPLIT_0_2 = [[1797259609, 2579123966], [928981903, 3453687069]]
+KNOWN_FOLD_IN_0_3 = [2467461003, 3840466878]
+KNOWN_BITS_0_4 = [4070199207, 4202968722, 1427181096, 2012915765]
+KNOWN_CATEGORICAL = {0: 73608, 7: 96183}      # seed -> index, zeros(V)
 
 LLAMA_VOCAB_NEWLINE = 198       # "\n" in the Llama 3 tokenizer
 LLAMA_VOCAB_EOS = 128001        # <|end_of_text|>
@@ -147,6 +178,31 @@ def paged_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512,
             torch.as_tensor(lens, device="cuda"))
 
 
+def paged_long_inputs(torch, np, rng, dtype, H=32, K=8, hd=64, S=16, P=512,
+                      T=160):
+    """Block tables that span many splits at every pages-per-split of
+    the sweep: (pages, length) per row, -1 entries inside tables, a row
+    sharing 100 prefix pages with row 0, a -1-only stretch of 8 entries,
+    rows ending mid-page and mid-split, a zero-length row and one-page
+    rows."""
+    rows = [(160, 160 * S - 5), (130, 130 * S - 9), (0, 0), (1, 7),
+            (1, S), (37, 37 * S - 1), (129, 129 * S - 3), (64, 64 * S)]
+    B = len(rows)
+    bt = np.full((B, T), -1, np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, (n, length) in enumerate(rows):
+        bt[b, :n] = rng.choice(P, n, replace=False)
+        lens[b] = length
+    bt[6, :100] = bt[0, :100]
+    bt[1, 3:130:7] = -1
+    bt[7, 8:16] = -1
+    mk = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.normal(size=shape), dtype=dtype, device="cuda")
+    return (mk(B, H, hd), mk(P, S, K, hd), mk(P, S, K, hd),
+            torch.as_tensor(bt, device="cuda"),
+            torch.as_tensor(lens, device="cuda"))
+
+
 def tree_inputs(torch, np, rng, dtype, B=32, H=32, K=8, hd=64, S=16, P=512,
                 problems=4):
     from repro_torch.kvcache import build_tree_metadata
@@ -188,15 +244,15 @@ def flash_inputs(torch, rng, dtype, B=4, S=256, H=32, K=8, hd=64):
 # work of one call: bytes each input/output moves once, and FLOPs
 # ---------------------------------------------------------------------------
 
-def paged_work(args, scale):
-    q, kp, _, bt, lens = args
-    B, H, hd = q.shape
-    _, S, K, _ = kp.shape
-    el = q.element_size()
+def paged_slots(args):
+    """(valid slots per unique page, (row, slot) pairs attended) of a
+    paged call."""
+    _, kp, _, bt, lens = args
+    S = kp.shape[1]
     bt_h, lens_h = bt.cpu().numpy(), lens.cpu().numpy()
     uniq = {}        # page -> valid slots the function must read once
-    row_tok = 0      # (row, slot) pairs attended
-    for b in range(B):
+    row_tok = 0
+    for b in range(bt_h.shape[0]):
         n = int(lens_h[b])
         for t in range(min(-(-n // S), bt_h.shape[1])):
             pg = int(bt_h[b, t])
@@ -204,10 +260,30 @@ def paged_work(args, scale):
                 valid = min(S, n - t * S)
                 row_tok += valid
                 uniq[pg] = max(uniq.get(pg, 0), valid)
+    return uniq, row_tok
+
+
+def paged_work(args, scale):
+    q, kp, _, bt, lens = args
+    B, H, hd = q.shape
+    _, S, K, _ = kp.shape
+    el = q.element_size()
+    uniq, row_tok = paged_slots(args)
     kv = sum(uniq.values()) * K * hd * 2 * el
     nbytes = kv + 2 * q.numel() * el + bt.numel() * 4 + lens.numel() * 4
     flops = 4 * row_tok * H * hd
     return nbytes, flops
+
+
+def paged_logical_bytes(args):
+    """The bytes of a paged call when every row streams its own pages
+    (a page shared by k rows counted k times)."""
+    q, kp, _, bt, lens = args
+    _, _, K, hd = kp.shape
+    el = q.element_size()
+    _, row_tok = paged_slots(args)
+    return (row_tok * K * hd * 2 * el + 2 * q.numel() * el
+            + bt.numel() * 4 + lens.numel() * 4)
 
 
 def tree_work(args, scale):
@@ -271,18 +347,38 @@ def phase_build():
     emit({"phase": "build", "seconds": round(secs, 3), "ptxas": regs})
 
 
-def check(name, dtype, out, ref, case):
+@contextlib.contextmanager
+def paged_pages_per_split(ops, pps):
+    """Run the paged wrapper at ``pps`` block-table entries per split."""
+    default = ops.PAGED_PAGES_PER_SPLIT
+    ops.PAGED_PAGES_PER_SPLIT = pps
+    try:
+        yield
+    finally:
+        ops.PAGED_PAGES_PER_SPLIT = default
+
+
+def check(name, dtype, out, ref, case, bf16_rounded=False):
+    """|out - ref| <= tol + rtol * |ref| elementwise: tol is the
+    reference tests' (rtol 0), or for ``bf16_rounded`` the fp32 tol with
+    rtol ``RTOL_BF16_ROUNDED``."""
     import torch
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[(name, "float32")] if dtype == torch.float32 else TOL_BF16
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol, rtol = TOL[(name, "float32")], 0.0
+    if dtype != torch.float32:
+        if bf16_rounded:
+            rtol = RTOL_BF16_ROUNDED
+        else:
+            tol = TOL_BF16
     finite = bool(torch.isfinite(out.float()).all())
     emit({"phase": "parity", "kernel": name, "case": case,
           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-          "tol": tol, "finite": finite})
-    if not finite or not err <= tol:
+          "tol": tol, "rtol": rtol, "finite": finite})
+    if not finite or not bool((diff <= tol + rtol * ref.float().abs()).all()):
         fail(f"{name} ({case}, {dtype}) disagrees with its plain version: "
-             f"max_abs_err {err} > {tol}")
+             f"max_abs_err {err}, tol {tol} + {rtol} x |ref|")
     return err
 
 
@@ -298,6 +394,21 @@ def phase_parity(torch, np):
               "ragged, -1 padded, one zero-length row")
         if bool(out[-1].ne(0).any()):
             fail("paged_attention: zero-length row is not zero")
+        a = paged_long_inputs(torch, np, rng, dt)
+        want = ref.paged_attention_ref(*a, scale=scale)
+        for pps in (ops.PAGED_PAGES_PER_SPLIT, 1, 256):
+            with paged_pages_per_split(ops, pps):
+                out = ops.paged_attention(*a, scale=scale)
+                again = ops.paged_attention(*a, scale=scale)
+            check("paged_attention", dt, out, want,
+                  f"160-page tables, {pps} pages per split, -1 holes, "
+                  f"a -1-only stretch, shared prefix, mid-page ends, "
+                  f"zero-length and one-page rows", bf16_rounded=True)
+            if bool(out[2].ne(0).any()):
+                fail("paged_attention: zero-length row is not zero")
+            if not torch.equal(out, again):
+                fail(f"paged_attention: two launches differ at {pps} pages "
+                     f"per split")
         # 28, 42 and 133 live leaves; at B = 160 the leaves' state does
         # not fit one CTA's shared memory, so the split pass cuts the
         # batch into leaf chunks and the last chunk ends in masked rows
@@ -363,7 +474,11 @@ class Recorder:
             setattr(self.ops, n, f)
 
 
-def run_mode(torch, np, mode, models, prompts, recorder):
+def run_mode(torch, np, mode, models, prompts, recorder=None,
+             temperature=0.0, max_steps=3, phase="main"):
+    """One ETS sweep over ``prompts`` in attention ``mode``; greedy runs
+    keep every decode step's logits (``engine.logits_trace``), and
+    ``recorder`` (if given) keeps the largest call of each kernel."""
     from repro_torch.core import ETSConfig, SearchConfig, run_search_many
     from repro_torch.kernels import ops
     from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
@@ -371,12 +486,12 @@ def run_mode(torch, np, mode, models, prompts, recorder):
     (lm, lp), (prm, pp), (emb, ep) = models
     engine = PagedEngine(lm, lp, EngineConfig(
         n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
-        attention=mode, trace_logits=True))
+        attention=mode, trace_logits=temperature <= 0))
     backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(
         step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
-        max_step_tokens=32, max_depth=8, temperature=0.0),
+        max_step_tokens=32, max_depth=8, temperature=temperature),
         answer_fn=lambda toks: None)
-    scfg = SearchConfig(method="ets", width=8, max_steps=3,
+    scfg = SearchConfig(method="ets", width=8, max_steps=max_steps,
                         ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
                                       cluster_threshold=0.2))
     times = {"prefill": 0.0, "decode": 0.0}
@@ -393,12 +508,13 @@ def run_mode(torch, np, mode, models, prompts, recorder):
 
     engine.prefill_many = timed("prefill", engine.prefill_many)
     engine.decode = timed("decode", engine.decode)
-    recorder.layer0_ptr = engine.pool.k.data_ptr()
+    if recorder is not None:
+        recorder.layer0_ptr = engine.pool.k.data_ptr()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with recorder:
+    with recorder or contextlib.nullcontext():
         results = run_search_many(backend, scfg, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -411,7 +527,8 @@ def run_mode(torch, np, mode, models, prompts, recorder):
         if len(r.tree.nodes) < 2:
             fail(f"{mode}: a search produced no children")
     info = {
-        "phase": "main", "mode": mode, "wall_s": wall,
+        "phase": phase, "mode": mode, "temperature": temperature,
+        "wall_s": wall,
         "launches": launches,
         "prefill_tokens": engine.n_prefill_tokens,
         "prefill_tok_s": engine.n_prefill_tokens / max(times["prefill"],
@@ -428,11 +545,135 @@ def run_mode(torch, np, mode, models, prompts, recorder):
     return results, engine.logits_trace, launches, info
 
 
+class SampleLog:
+    """Keeps every sampling call of the decode streams: the row keys, a
+    device copy of the logits and the tokens drawn."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.serving import engine
+        self.engine = engine
+        self.orig = engine.sample_tokens_rowwise
+
+        def wrapper(keys, logits, temperature):
+            tok = self.orig(keys, logits, temperature)
+            self.calls.append((np.array(keys), logits.detach().clone(),
+                               tok.copy(), temperature))
+            return tok
+        engine.sample_tokens_rowwise = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.sample_tokens_rowwise = self.orig
+
+
+def tree_tokens(results):
+    return [t for r in results for n in r.tree.nodes
+            for t in ((n.payload or {}).get("tokens") or [])]
+
+
+def token_agreement(res_p, res_t):
+    a, b = tree_tokens(res_p), tree_tokens(res_t)
+    return sum(x == y for x, y in zip(a, b)) / max(len(a), len(b), 1)
+
+
+def first_disagreement(calls_a, calls_b):
+    """The first draw at which two runs' ``SampleLog`` calls part, as
+    ``({call, row, tokens, gap}, draws compared)``, or ``(None, n)``.
+    ``gap`` is the larger, over the two runs' logits, of the distance
+    between the two candidates' perturbed logits."""
+    from repro_torch.serving import sampler
+    n_calls = 0
+    for (ka, la, ta, temp), (kb, lb, tb, _) in zip(calls_a, calls_b):
+        if ka.shape != kb.shape or not np.array_equal(ka, kb):
+            break                   # the streams parted at an earlier draw
+        n_calls += 1
+        rows = np.nonzero(ta != tb)[0]
+        if rows.size:
+            r = int(rows[0])
+            gaps = []
+            for logits in (la, lb):
+                pert = (logits[r].float() / temp + sampler.gumbel(
+                    ka[r:r + 1], logits.shape[1], logits.device)[0])
+                gaps.append(abs(float(pert[int(ta[r])] - pert[int(tb[r])])))
+            return ({"call": n_calls - 1, "row": r,
+                     "tokens": [int(ta[r]), int(tb[r])], "gap": max(gaps)},
+                    n_calls)
+    return None, n_calls
+
+
+def phase_sampling(torch, np, models, prompts, timer):
+    """The sampler's known answers on the card, then a sampled ETS sweep
+    in each attention mode, held against each other."""
+    from repro_torch.serving import sampler
+    k0 = sampler.key(0)
+    zeros = torch.zeros(1, 128256, device="cuda")
+    got = {
+        "key(0)": k0.tolist(),
+        "split(key(0), 2)": sampler.split(k0, 2).tolist(),
+        "fold_in(key(0), 3)": sampler.fold_in(k0, 3).tolist(),
+        "bits(key(0), (4,))": sampler.random_bits(
+            k0[None], 4, "cuda")[0].cpu().tolist(),
+        **{f"categorical(key({seed}), zeros(128256))": int(
+            sampler.sample_tokens_rowwise(sampler.key(seed)[None],
+                                          zeros)[0])
+           for seed in KNOWN_CATEGORICAL},
+    }
+    want = {
+        "key(0)": [0, 0], "split(key(0), 2)": KNOWN_SPLIT_0_2,
+        "fold_in(key(0), 3)": KNOWN_FOLD_IN_0_3,
+        "bits(key(0), (4,))": KNOWN_BITS_0_4,
+        **{f"categorical(key({seed}), zeros(128256))": idx
+           for seed, idx in KNOWN_CATEGORICAL.items()},
+    }
+    emit({"phase": "sampling", "known_answers": got,
+          "exact": got == want})
+    if got != want:
+        fail(f"sampler known answers: got {got}, want {want}")
+    # one decode step's draw at the main path's width, host launches and
+    # the tokens' copy to the host included
+    logits = torch.randn(32, 128256, device="cuda")
+    keys = sampler.split(sampler.key(1), 32)
+    emit({"phase": "sampler_time", "rows": 32, "vocab": 128256,
+          "sampled_ms": timer.ms(lambda: sampler.sample_tokens_rowwise(
+              keys, logits, 1.0)),
+          "greedy_ms": timer.ms(lambda: sampler.sample_tokens_rowwise(
+              keys, logits, 0.0))})
+    runs = {}
+    for mode in ("paged", "tree"):
+        with SampleLog() as log:
+            res, _, launches, info = run_mode(
+                torch, np, mode, models, prompts, temperature=1.0,
+                max_steps=2, phase="sampled")
+        runs[mode] = (res, log.calls, launches, info)
+    if not (runs["paged"][2]["paged_attention"]
+            and runs["tree"][2]["tree_attention"]
+            and all(runs[m][2]["flash_prefill"] for m in runs)):
+        fail(f"a kernel of the path did not launch in the sampled runs: "
+             f"{[runs[m][2] for m in runs]}")
+    first, n_calls = first_disagreement(runs["paged"][1], runs["tree"][1])
+    if n_calls == 0:
+        fail("the sampled runs drew with different keys from the start")
+    emit({"phase": "sampled_modes",
+          "token_agreement": token_agreement(runs["paged"][0],
+                                             runs["tree"][0]),
+          "draws_compared": n_calls, "first_disagreement": first,
+          "tol_gap": TOL_SAMPLED_GAP,
+          "decode_tok_s": {m: runs[m][3]["decode_tok_s"] for m in runs}})
+    if first is not None and first["gap"] > TOL_SAMPLED_GAP:
+        fail(f"sampled paged and tree decode part at a gap of "
+             f"{first['gap']} > {TOL_SAMPLED_GAP}: {first}")
+    for mode, (res, _, _, _) in runs.items():
+        kids = {tuple((n.payload or {}).get("tokens") or ())
+                for n in res[0].tree.nodes[1:]}
+        if len(kids) < 2:
+            fail(f"sampled {mode} search drew one branch only")
+
+
 def compare_modes(np, res_p, trace_p, res_t, trace_t):
-    toks = lambda rs: [t for r in rs for n in r.tree.nodes  # noqa: E731
-                       for t in ((n.payload or {}).get("tokens") or [])]
-    a, b = toks(res_p), toks(res_t)
-    agree = sum(x == y for x, y in zip(a, b)) / max(len(a), len(b), 1)
+    agree = token_agreement(res_p, res_t)
     worst, n_cmp = 0.0, 0
     for lp, lt in zip(trace_p, trace_t):
         if lp.shape != lt.shape:
@@ -471,6 +712,19 @@ def phase_replay(torch, recorder, launches, timer):
         plain_ms = timer.ms(lambda: plain[k.name](*args, scale=kw["scale"]))
         library_ms = None
         extra = {}
+        if k.name == "paged_attention":
+            # as for the tree kernel below, over block-table entries
+            extra["pages_per_split_default"] = ops.PAGED_PAGES_PER_SPLIT
+            sweep = {}
+            for pps in (1, 2, 4, 8, 16, 32):
+                with paged_pages_per_split(ops, pps):
+                    sweep[pps] = timer.device_ms(lambda: fn(*args, **kw))
+            extra["device_ms_by_pages_per_split"] = sweep
+            # every row streams its own pages: the bytes when L2 serves
+            # no re-read of a shared page
+            extra["logical_bytes"] = paged_logical_bytes(args)
+            extra["logical_bound_ms"] = \
+                extra["logical_bytes"] / PEAK_BYTES * 1e3
         if k.name == "tree_attention":
             # pages per split trades CTAs (parallelism) and partials for
             # the combine against the length of each CTA's page stream
@@ -568,10 +822,13 @@ def phase_profile(torch, models, prompts):
           "device_busy_ms_per_step": busy_ms / steps,
           "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
           "device_events": sum(n for _, n in by_name.values()),
-          # the tree kernel's two launches (split pass + combine pass)
+          # the tree kernel's two launches: its split pass and the
+          # combine pass it shares with the paged kernel (tree mode only
+          # runs here)
           "tree_attention_ms_per_step": sum(
               ms for name, (ms, _) in by_name.items()
-              if name.startswith("void tree_")) / steps,
+              if name.startswith(("void tree_",
+                                  "void split_combine_kernel"))) / steps,
           "top": [{"name": name[:90], "ms_per_step": ms / steps,
                    "launches_per_step": n / steps}
                   for name, (ms, n) in top]})
@@ -593,7 +850,7 @@ def warm_up(torch, models, prompts):
     torch.cuda.synchronize()
 
 
-def phase_main(torch, np):
+def phase_main(torch, np, timer):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -620,6 +877,7 @@ def phase_main(torch, np):
         fail(f"a kernel of the path did not launch: paged {l_p}, tree {l_t}")
     compare_modes(np, res_p, trace_p, res_t, trace_t)
     launches = {n: l_p[n] + l_t[n] for n in l_p}
+    phase_sampling(torch, np, models, prompts, timer)
     phase_profile(torch, models, prompts)
     return recorder, launches
 
@@ -637,8 +895,9 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     phase_parity(torch, np)
-    recorder, launches = phase_main(torch, np)
-    lines = phase_replay(torch, recorder, launches, Timer(torch))
+    timer = Timer(torch)
+    recorder, launches = phase_main(torch, np, timer)
+    lines = phase_replay(torch, recorder, launches, timer)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

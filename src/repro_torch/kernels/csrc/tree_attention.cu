@@ -47,7 +47,8 @@
 //     sentinel is written).  Scratch: n_splits x B x H x (hd + 2) floats
 //     plus n_splits x B bytes (fp32 llama3.2-1b decode, 256 live pages,
 //     8 pages per split: 32 x 32 x 32 x 66 x 4 B = 8.7 MB).
-//  3. Combine pass, one warp per (leaf, head): merges the leaf's hit
+//  3. Combine pass (common.cuh's split_combine_kernel, shared with the
+//     paged kernel), one warp per (leaf, head): merges the leaf's hit
 //     splits in split order with log-sum-exp rescaling, no atomics, so a
 //     result repeats bit for bit from run to run; writes
 //     acc / max(l, 1e-30).  A leaf with no hit split writes zeros.
@@ -59,48 +60,6 @@
 
 #define TREE_WARPS 8
 #define TREE_MAX_WORDS 8          // at most 256 leaves per CTA chunk
-#define COMBINE_WARPS 8
-
-// d[0..3] += the products of one 16-byte chunk of a K row with the same
-// chunk of q (four independent partial sums).
-__device__ __forceinline__ void dot16(float (&d)[4], const uint4 k,
-                                      const uint4 q, float) {
-  d[0] = fmaf(__uint_as_float(k.x), __uint_as_float(q.x), d[0]);
-  d[1] = fmaf(__uint_as_float(k.y), __uint_as_float(q.y), d[1]);
-  d[2] = fmaf(__uint_as_float(k.z), __uint_as_float(q.z), d[2]);
-  d[3] = fmaf(__uint_as_float(k.w), __uint_as_float(q.w), d[3]);
-}
-__device__ __forceinline__ void dot16(float (&d)[4], const uint4 k,
-                                      const uint4 q, __nv_bfloat16) {
-  const unsigned kw[4] = {k.x, k.y, k.z, k.w}, qw[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 kf = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&kw[i]));
-    const float2 qf = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&qw[i]));
-    d[i] = fmaf(kf.x, qf.x, fmaf(kf.y, qf.y, d[i]));
-  }
-}
-// a[0 .. n) += p * one 16-byte chunk of a V row.
-__device__ __forceinline__ void axpy16(float (&a)[4], const uint4 raw,
-                                       float p) {
-  a[0] = fmaf(p, __uint_as_float(raw.x), a[0]);
-  a[1] = fmaf(p, __uint_as_float(raw.y), a[1]);
-  a[2] = fmaf(p, __uint_as_float(raw.z), a[2]);
-  a[3] = fmaf(p, __uint_as_float(raw.w), a[3]);
-}
-__device__ __forceinline__ void axpy16(float (&a)[8], const uint4 raw,
-                                       float p) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    a[2 * i] = fmaf(p, f.x, a[2 * i]);
-    a[2 * i + 1] = fmaf(p, f.y, a[2 * i + 1]);
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(TREE_WARPS * 32) tree_split_kernel(
@@ -341,48 +300,6 @@ __global__ void __launch_bounds__(TREE_WARPS * 32) tree_split_kernel(
   }
 }
 
-// One warp per (leaf, query head): merge the leaf's hit splits in split
-// order; lane t holds output dims t, t + 32, ....
-template <typename T>
-__global__ void __launch_bounds__(COMBINE_WARPS * 32) tree_combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const unsigned char* __restrict__ part_hit, T* __restrict__ out, int B,
-    int H, int hd, int n_splits) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * COMBINE_WARPS + warp;   // b * H + h
-  if (pair >= B * H) return;
-  const int b = pair / H;
-  float m = NEG_INF_F, l = 0.f, a[8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) a[t] = 0.f;
-  for (int sb = 0; sb < n_splits; sb += 32) {
-    const int s = sb + lane;
-    unsigned bits = __ballot_sync(
-        0xffffffffu, s < n_splits && part_hit[(size_t)s * B + b] != 0);
-    while (bits) {
-      const size_t base = (size_t)(sb + __ffs(bits) - 1) * B * H + pair;
-      bits &= bits - 1u;
-      const float m_s = part_ml[base * 2], l_s = part_ml[base * 2 + 1];
-      const float m_new = fmaxf(m, m_s);
-      const float c_old = expf(m - m_new), c_new = expf(m_s - m_new);
-      l = l * c_old + l_s * c_new;
-      const float* src = part_acc + base * hd;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int d = lane + 32 * t;
-        if (d < hd) a[t] = a[t] * c_old + src[d] * c_new;
-      }
-      m = m_new;
-    }
-  }
-  const float denom = fmaxf(l, L_MIN_F);
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int d = lane + 32 * t;
-    if (d < hd) out[(size_t)pair * hd + d] = from_float<T>(a[t] / denom);
-  }
-}
-
 template <typename T>
 static int launch(const void* q, const void* k, const void* v,
                   const void* page_list, const void* page_mask,
@@ -392,16 +309,9 @@ static int launch(const void* q, const void* k, const void* v,
                   cudaStream_t stream) {
   const int n_splits = (n_entries + pps - 1) / pps;
   if (n_splits > 0) {
-    static int optin = 0;               // the card's per-block cap
-    cudaError_t e = cudaSuccess;
-    if (optin == 0) {
-      int dev = 0;
-      e = cudaGetDevice(&dev);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(
-            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (e != cudaSuccess) return (int)e;
-    }
+    size_t optin = 0;                   // the card's per-block cap
+    cudaError_t e = smem_optin(&optin);
+    if (e != cudaSuccess) return (int)e;
     // leaves per CTA: all of the batch when their state fits
     const size_t page_bytes = (size_t)S * hd * sizeof(T);
     int lb = B < 32 * TREE_MAX_WORDS ? B : 32 * TREE_MAX_WORDS;
@@ -411,7 +321,7 @@ static int launch(const void* q, const void* k, const void* v,
       smem = 4 * page_bytes + (size_t)lb * G * hd * sizeof(T)
              + (size_t)lb * G * (hd + 3 + S) * sizeof(float)
              + ((size_t)pps * (nwords + 1) + 2 * lb) * 4;
-      if (smem <= (size_t)optin) break;
+      if (smem <= optin) break;
       if (lb == 1) return (int)cudaErrorInvalidValue;
       lb = lb > 32 ? lb - 32 : lb / 2;
     }
@@ -431,12 +341,8 @@ static int launch(const void* q, const void* k, const void* v,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const int H = K * G;
-  tree_combine_kernel<T><<<(B * H + COMBINE_WARPS - 1) / COMBINE_WARPS,
-                           COMBINE_WARPS * 32, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml,
-      (const unsigned char*)part_hit, (T*)out, B, H, hd, n_splits);
-  return (int)cudaGetLastError();
+  return (int)launch_combine<T>(part_acc, part_ml, part_hit, out, B, K * G,
+                                hd, n_splits, stream);
 }
 
 // C entry point (loaded with ctypes).  The Python wrapper checks shapes,

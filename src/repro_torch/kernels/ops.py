@@ -56,7 +56,7 @@ class Kernel:
         self.launches += 1
 
 
-PAGED = Kernel("paged_attention", [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+PAGED = Kernel("paged_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/paged_attention.py:116")
 TREE = Kernel("tree_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P],
               "src/repro/kernels/tree_attention.py:217")
@@ -116,10 +116,27 @@ def _stream(device) -> int:
 # Wrappers
 # ---------------------------------------------------------------------------
 
+# block-table entries each CTA of the paged kernel's split pass walks:
+# the grid is (rows, kv heads, ceil(T / PAGED_PAGES_PER_SPLIT)).  Fewer
+# give more CTAs and more partials for the combine pass; more give each
+# CTA a longer double-buffered page stream.  Read at every call (the
+# wrapper's signature has no such argument).  chip_smoke.py's replay
+# sweep on an NVIDIA H100 80GB HBM3 (700 W), on the largest paged call of
+# its llama3.2-1b main path (32 rows, 9456 attended slots, T 32, 8 kv
+# heads, fp32), read 0.0427, 0.0365, 0.0331, 0.0387, 0.0452 and 0.0527 ms
+# at 1, 2, 4, 8, 16 and 32 pages per split (PERF.md).
+PAGED_PAGES_PER_SPLIT = 4
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
                     scale: float) -> torch.Tensor:
     """q (B,H,hd); k/v_pool (P,S,K,hd); block_tables (B,T) int32 (-1
-    pad); lengths (B,) int32.  Returns (B,H,hd) in q's dtype."""
+    pad); lengths (B,) int32.  Returns (B,H,hd) in q's dtype.
+
+    On a CUDA device: a split pass over ``PAGED_PAGES_PER_SPLIT``
+    block-table entries per CTA and a combine pass (two launches, one
+    count); the split size does not change the result.
+    """
     if _on_cpu(q):
         return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
                                    scale=scale)
@@ -133,13 +150,27 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
     _check("v_pool", v_pool, dev, dt, (P, S, K, hd))
     _check("block_tables", block_tables, dev, torch.int32, (B, T))
     _check("lengths", lengths, dev, torch.int32, (B,))
-    if H % K or not 1 <= H // K <= 32 or hd > 256:
-        raise ValueError(f"paged_attention takes G = H/K in 1..32 and "
-                         f"hd <= 256, got H={H} K={K} hd={hd}")
+    _check_aligned(q, k_pool, v_pool)
+    G = H // K if K else 0
+    if H % K or not 1 <= G <= 32 or hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"paged_attention takes G = H/K in 1..32 and hd a "
+                         f"multiple of 8 up to 256, got H={H} K={K} hd={hd}")
+    pps = int(PAGED_PAGES_PER_SPLIT)
+    if pps < 1:
+        raise ValueError(f"PAGED_PAGES_PER_SPLIT must be >= 1, got {pps}")
+    pps = max(1, min(pps, T))
+    n_splits = -(-T // pps)
     out = torch.empty_like(q)
+    # one scratch buffer for the split partials: acc (n_splits, B, H, hd)
+    # and (m, l) (n_splits, B, H, 2), float32
+    acc_bytes = n_splits * B * H * hd * 4
+    scratch = torch.empty(acc_bytes + n_splits * B * H * 2 * 4,
+                          dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     PAGED.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, K, H // K, hd, S, T, float(scale), code, _stream(dev))
+                 base, base + acc_bytes, B, K, G, hd, S, T, pps,
+                 float(scale), code, _stream(dev))
     return out
 
 

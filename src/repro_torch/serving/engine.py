@@ -52,7 +52,8 @@ from ..kernels import ops
 from ..kvcache import KVPool, PageAllocator
 from ..kvcache.pool import pow2_bucket
 from .runtimes import DecodeCtx, PrefillCtx, build_runtimes, total_kv_layers
-from .sampler import RowKey, sample_tokens_rowwise
+from .sampler import as_keys, sample_tokens_rowwise, split, split_rows
+from .sampler import key as prng_key
 
 
 @dataclass
@@ -352,15 +353,16 @@ class PagedEngine:
     def decode(self, seq_ids: Sequence[int], n_tokens: int,
                key: Optional[int] = None, temperature: float = 1.0,
                stop_tokens: Sequence[int] = (),
-               row_keys: Optional[Sequence[RowKey]] = None
+               row_keys: Optional[np.ndarray] = None
                ) -> Dict[int, List[int]]:
         """Decode up to n_tokens for each sequence, lock-step batched.
 
         Stops a sequence early when a stop token is emitted (the stop
         token is included in the returned step).  Returns new tokens per
-        seq_id.  Sampling is row-keyed: callers pass ``row_keys`` (one
-        key tuple per sequence) or a single int ``key`` that becomes
-        ``(key, row index)`` per row.
+        seq_id.  Sampling is row-keyed (``sampler``): callers pass
+        ``row_keys`` ((n, 2) uint32 threefry keys, one per sequence) or
+        an int seed ``key``, and row j then starts from ``fold_in(
+        key(seed), j)`` — the reference's ``split(key(seed), n)[j]``.
         """
         ids = list(seq_ids)
         if len(ids) > self.ecfg.max_batch:
@@ -369,7 +371,7 @@ class PagedEngine:
         if row_keys is None:
             if key is None:
                 raise ValueError("pass key or row_keys")
-            row_keys = [(int(key), j) for j in range(len(ids))]
+            row_keys = split(prng_key(key), len(ids))
         self.n_decode_calls += 1
         if n_tokens <= 0:
             return {i: [] for i in ids}
@@ -387,9 +389,12 @@ class DecodeStream:
     Sequences occupy slots of the static ``max_batch`` row grid;
     ``step()`` runs ONE lock-step iteration over the occupied slots and
     ``add()`` may seat new sequences into free slots at any iteration
-    boundary.  A row's sampled stream depends only on its own key (its
-    ``add()`` key plus the count of iterations it has been live), its
-    own logits and its stop history.
+    boundary.  Each seated row carries its own threefry key chain, split
+    once per iteration it is live (next ``fold_in(k, 0)``, sample with
+    ``fold_in(k, 1)``) as in the reference; a free slot carries no key
+    and is never sampled.  So a row's sampled stream depends only on its
+    own key, its own logits and its stop history.  A greedy stream
+    (temperature <= 0) reads no key and leaves the chains as they are.
     """
 
     def __init__(self, engine: PagedEngine, *, temperature: float = 1.0,
@@ -401,8 +406,7 @@ class DecodeStream:
         self._slot_seq: List[Optional[int]] = [None] * B
         self._slot_of: Dict[int, int] = {}
         self._budget: Dict[int, int] = {}
-        self._key: Dict[int, RowKey] = {}
-        self._iters: Dict[int, int] = {}
+        self._key: Dict[int, np.ndarray] = {}
         self.out: Dict[int, List[int]] = {}
 
     @property
@@ -414,24 +418,25 @@ class DecodeStream:
     def n_free(self) -> int:
         return sum(1 for s in self._slot_seq if s is None)
 
-    def add(self, seq_ids: Sequence[int], row_keys: Sequence[RowKey],
-            n_tokens: int) -> None:
+    def add(self, seq_ids: Sequence[int], row_keys, n_tokens: int) -> None:
         """Seat sequences into free slots (lowest index first), each with
-        its own sampling key and a per-row budget of ``n_tokens``."""
+        its own sampling key (``row_keys`` (n, 2) uint32) and a per-row
+        budget of ``n_tokens``."""
         ids = list(seq_ids)
-        if len(row_keys) != len(ids):
-            raise ValueError(f"{len(row_keys)} keys for {len(ids)} rows")
+        row_keys = as_keys(row_keys)
+        if row_keys.shape != (len(ids), 2):
+            raise ValueError(f"keys of shape {row_keys.shape} for "
+                             f"{len(ids)} rows (want (n, 2))")
         free = [j for j, s in enumerate(self._slot_seq) if s is None]
         if len(ids) > len(free):
             raise ValueError(f"{len(ids)} rows, {len(free)} free slots")
-        for j, i, key in zip(free, ids, row_keys):
+        for j, i, k in zip(free, ids, row_keys):
             if i in self._slot_of:
                 raise ValueError(f"sequence {i} is already streaming")
             self._slot_seq[j] = i
             self._slot_of[i] = j
             self._budget[i] = int(n_tokens)
-            self._key[i] = tuple(int(x) for x in key)
-            self._iters[i] = 0
+            self._key[i] = k
             self.out[i] = []
 
     def _free_slot(self, i: int) -> None:
@@ -439,7 +444,6 @@ class DecodeStream:
         self._slot_seq[j] = None
         self._budget.pop(i, None)
         self._key.pop(i, None)
-        self._iters.pop(i, None)
 
     def step(self) -> List[int]:
         """Run ONE lock-step iteration over the occupied slots.
@@ -500,15 +504,24 @@ class DecodeStream:
                                   eng._put(slots), eng._put(act), attend)
         if ecfg.trace_logits:
             eng.logits_trace.append(logits.cpu().numpy())
-        keys = [None if i is None else self._key[i] + (self._iters[i],)
-                for i in self._slot_seq]
-        new = sample_tokens_rowwise(keys, logits, self.temperature)
+        # tokens of the occupied rows, on the device (B tokens come back,
+        # not B x V logits)
+        occ = [j for j, i in enumerate(rows) if i is not None]
+        if self.temperature <= 0:       # greedy: the keys are never read
+            new = sample_tokens_rowwise(None, logits, 0.0)[occ]
+        else:
+            # advance every live row's chain once; sample with the subkey
+            nxt, sub = split_rows(np.stack([self._key[rows[j]]
+                                            for j in occ]))
+            for j, k in zip(occ, nxt):
+                self._key[rows[j]] = k
+            if len(occ) < B:
+                logits = logits[eng._put(np.asarray(occ, np.int64))]
+            new = sample_tokens_rowwise(sub, logits, self.temperature)
         finished: List[int] = []
-        for j, i in enumerate(self._slot_seq):
-            if i is None:
-                continue
-            t = int(new[j])
-            self._iters[i] += 1
+        for t, j in zip(new, occ):
+            i = rows[j]
+            t = int(t)
             eng.tokens[i].append(t)
             self.out[i].append(t)
             eng.n_decoded_tokens += 1

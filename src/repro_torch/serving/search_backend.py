@@ -17,9 +17,11 @@ right-padded into power-of-two (rows, length) buckets with padded
 positions at -1, which the attention mask excludes.
 
 Problem namespaces: every problem keeps its own engine sequence
-namespace, sampling-key chain (``(seed, step)`` per expand call, one
-``(seed, step, branch)`` row key per branch) and KV/IO trace, so a
-branch's token stream depends only on its own problem.
+namespace, sampling-key chain and KV/IO trace, so a branch's token
+stream depends only on its own problem.  The chain is the reference's:
+it starts at ``key(seed)``, each expand call splits it once (``chain,
+step_key = fold_in(chain, 0), fold_in(chain, 1)``) and branch i decodes
+from ``fold_in(step_key, i)`` (``sampler``).
 
 ``on_step`` frees the engine sequences of pruned leaves — where ETS's
 ILP decisions become physical page releases — and ``finish_problem``
@@ -41,7 +43,8 @@ import torch
 from ..core.tree import SearchTree
 from ..device import resolve_device
 from .engine import PagedEngine
-from .sampler import RowKey
+from .sampler import fold_in, split
+from .sampler import key as prng_key
 from ..kvcache.pool import pow2_bucket as _bucket
 
 
@@ -61,7 +64,7 @@ class ExpandTicket:
     tree: SearchTree
     plan: List[Tuple[int, List[int]]]
     branches: List[int]
-    row_keys: Optional[List[RowKey]]
+    row_keys: Optional[np.ndarray]     # (len(branches), 2) uint32
 
 
 def _pad_bucket(seqs: Sequence[Sequence[int]]):
@@ -112,10 +115,10 @@ class LMBackend:
         self.bcfg = bcfg
         self.answer_fn = answer_fn
         self.seed = seed
-        # per-problem state, keyed by namespace: next step index of the
-        # sampling-key chain, live engine sequences, KV/IO trace, and the
-        # last sampled cumulative IO counters (the trace stores deltas)
-        self._steps: Dict[Any, int] = {}
+        # per-problem state, keyed by namespace: the sampling-key chain,
+        # live engine sequences, KV/IO trace, and the last sampled
+        # cumulative IO counters (the trace stores deltas)
+        self._keys: Dict[Any, np.ndarray] = {}
         self._ns_seqs: Dict[Any, set] = {}
         self.kv_trace_by_problem: Dict[Any, List[Dict[str, int]]] = {}
         self._last_io_ns: Dict[Any, Tuple[int, int]] = {}
@@ -144,17 +147,18 @@ class LMBackend:
         trees = []
         for p, sid in zip(prompts, sids):
             ns = self._ns_of(sid)
-            self._steps[ns] = 0
+            self._keys[ns] = prng_key(self.seed)
             self._ns_seqs.setdefault(ns, set()).add(sid)
             trees.append(SearchTree(
                 root_tokens=len(p),
                 root_payload={"seq_id": sid, "tokens": [], "ns": ns}))
         return trees
 
-    def _next_key(self, ns) -> RowKey:
-        step = self._steps.get(ns, 0)
-        self._steps[ns] = step + 1
-        return (int(self.seed), step)
+    def _next_key(self, ns) -> np.ndarray:
+        """Split the problem's chain once; returns the step key."""
+        chain = self._keys.get(ns, prng_key(self.seed))
+        self._keys[ns] = fold_in(chain, 0)
+        return fold_in(chain, 1)
 
     def _add_child(self, tree: SearchTree, leaf: int, bid: int,
                    toks: List[int]) -> int:
@@ -200,8 +204,7 @@ class LMBackend:
             branches.extend(bids)
         row_keys = None
         if branches:
-            step_key = self._next_key(ns)
-            row_keys = [step_key + (i,) for i in range(len(branches))]
+            row_keys = split(self._next_key(ns), len(branches))
         return ExpandTicket(tree=tree, plan=plan, branches=branches,
                             row_keys=row_keys)
 
@@ -242,8 +245,8 @@ class LMBackend:
         all_branches = [b for t in tickets for b in t.branches]
         outs: Dict[int, List[int]] = {}
         if all_branches:
-            row_keys = [k for t in tickets if t.row_keys is not None
-                        for k in t.row_keys]
+            row_keys = np.concatenate([t.row_keys for t in tickets
+                                       if t.row_keys is not None])
             mb = self.engine.ecfg.max_batch
             for i in range(0, len(all_branches), mb):
                 outs.update(self.engine.decode(
@@ -379,7 +382,7 @@ class LMBackend:
             self._protected.discard(sid)
             if sid in self.engine.alloc.seqs:
                 self.engine.free(sid)
-        self._steps.pop(ns, None)
+        self._keys.pop(ns, None)
         self._last_io_ns.pop(ns, None)
         self.engine.unique_pages_streamed_by_ns.pop(ns, None)
         self.engine.logical_pages_streamed_by_ns.pop(ns, None)

@@ -5,8 +5,9 @@ on machines that have only the port's dependencies:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each CUDA kernel against its plain version on the card (tolerances of
-the reference's kernel tests), its launch counter, and a tiny engine on
-the card against the same engine on the CPU (plain path).
+the reference's kernel tests), its launch counter, the sampler's known
+answers on the card, and a tiny engine on the card against the same
+engine on the CPU (plain path).
 """
 import dataclasses
 
@@ -20,7 +21,7 @@ from repro_torch.kernels.ref import (flash_prefill_ref, paged_attention_ref,
                                      tree_attention_ref)
 from repro_torch.kvcache import build_tree_metadata
 from repro_torch.models.model import build_model, tree_map
-from repro_torch.serving import EngineConfig, PagedEngine
+from repro_torch.serving import EngineConfig, PagedEngine, sampler
 
 RNG = np.random.default_rng(3)
 
@@ -59,6 +60,81 @@ def test_paged_kernel(cuda, dtype):
                                paged_attention_ref(*args, scale=0.125).float(),
                                rtol=tol, atol=tol)
     assert torch.all(out[-1] == 0)
+
+
+def _long_tables(S, P, T=150):
+    """Block tables that span many splits: (pages, length) per row with
+    -1 holes, a -1-only stretch, a shared prefix, rows ending mid-page
+    and mid-split, zero-length and one-page rows."""
+    rows = [(T, T * S - 5), (130, 130 * S - 9), (0, 0), (1, 7), (1, S),
+            (37, 37 * S - 1), (129, 129 * S - 3), (64, 64 * S)]
+    bt = np.full((len(rows), T), -1, np.int32)
+    lens = np.zeros(len(rows), np.int32)
+    for b, (n, length) in enumerate(rows):
+        bt[b, :n] = RNG.choice(P, n, replace=False)
+        lens[b] = length
+    bt[6, :100] = bt[0, :100]
+    bt[1, 3:130:7] = -1
+    bt[7, 8:16] = -1
+    return bt, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("pps", [1, None, 1000])
+def test_paged_kernel_splits(cuda, pps, hd, dtype, monkeypatch):
+    """The split pass + combine over tables of up to 150 pages, at one
+    page per split, the default, and more pages than any row holds."""
+    if pps is not None:
+        monkeypatch.setattr(ops, "PAGED_PAGES_PER_SPLIT", pps)
+    H, K, S, P = 32, 8, 16, 512
+    bt, lens = _long_tables(S, P)
+    args = (_rand((len(lens), H, hd), dtype, cuda),
+            _rand((P, S, K, hd), dtype, cuda),
+            _rand((P, S, K, hd), dtype, cuda),
+            torch.as_tensor(bt, device=cuda),
+            torch.as_tensor(lens, device=cuda))
+    before = ops.PAGED.launches
+    out = ops.paged_attention(*args, scale=hd ** -0.5)
+    assert ops.PAGED.launches == before + 1
+    want = paged_attention_ref(*args, scale=hd ** -0.5).float()
+    if dtype == torch.float32:
+        rtol = atol = 2e-5
+    else:
+        # both sides compute in fp32 and round once to bf16: the fp32
+        # tolerance plus two bf16 ulps (2**-7 of the value) per element,
+        # far below the reference tests' 2e-2, which is near a typical
+        # output of rows this long
+        rtol, atol = 2 * 2 ** -7, 2e-5
+    torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    assert torch.all(out[2] == 0)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_repeats_bitwise(cuda):
+    """The combine merges splits in a fixed order with no atomics."""
+    H, K, hd, S, P = 32, 8, 64, 16, 512
+    bt, lens = _long_tables(S, P)
+    args = (_rand((len(lens), H, hd), torch.float32, cuda),
+            _rand((P, S, K, hd), torch.float32, cuda),
+            _rand((P, S, K, hd), torch.float32, cuda),
+            torch.as_tensor(bt, device=cuda),
+            torch.as_tensor(lens, device=cuda))
+    outs = [ops.paged_attention(*args, scale=0.125) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_sampler_known_answers_on_card(cuda):
+    """jax 0.9.0's answers (``jax_threefry_partitionable`` on)."""
+    k0 = sampler.key(0)
+    assert sampler.random_bits(k0[None], 4, cuda)[0].tolist() == [
+        4070199207, 4202968722, 1427181096, 2012915765]
+    zeros = torch.zeros(1, 128256, device=cuda)
+    for seed, want in ((0, 73608), (7, 96183)):
+        got = sampler.sample_tokens_rowwise(sampler.key(seed)[None], zeros)
+        assert got.tolist() == [want]
 
 
 @pytest.mark.cuda
@@ -172,9 +248,10 @@ def test_wrappers_reject_bad_operands(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["paged", "tree"])
 def test_engine_on_card_matches_cpu(cuda, mode):
-    """A tiny engine on the card (kernels) against the same engine on
-    the CPU (plain versions): same greedy tokens, close logits, and the
-    kernels of the path launched."""
+    """A tiny engine on the card (kernels, noise drawn on the card)
+    against the same engine on the CPU (plain versions): same greedy and
+    sampled tokens, close logits, and the kernels of the path
+    launched."""
     cfg = dataclasses.replace(get_config("tiny-lm"), n_layers=2, d_model=128,
                               n_heads=4, n_kv_heads=2, head_dim=32,
                               vocab_size=64)
@@ -192,8 +269,10 @@ def test_engine_on_card_matches_cpu(cuda, mode):
         sids = e.prefill_many(prompts)
         ids = e.branch(sids[0], 3) + e.branch(sids[2], 2)
         outs.append((e.decode(ids, 8, key=0, temperature=0.0),
-                     e.logits_trace))
+                     e.logits_trace,
+                     e.decode(ids, 6, key=3, temperature=1.0)))
     assert outs[0][0] == outs[1][0]
+    assert outs[0][2] == outs[1][2]
     for a, b in zip(outs[0][1], outs[1][1]):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
     kernel = ops.PAGED if mode == "paged" else ops.TREE

@@ -1,7 +1,7 @@
 """The port's paged engine against ``repro``'s ``PagedEngine`` on the
-CPU: the same prompts through ``prefill_many``, ``branch`` and greedy
-``decode`` give the same tokens, float32-allclose logits and the same
-unique/logical page counters, in both attention modes."""
+CPU: the same prompts through ``prefill_many``, ``branch`` and greedy or
+sampled ``decode`` give the same tokens, float32-allclose logits and the
+same unique/logical page counters, in both attention modes."""
 import jax
 import numpy as np
 import pytest
@@ -88,6 +88,36 @@ def test_prefill_branch_decode_match_reference(stacks, mode):
             e.free(sid)
         e.alloc.check_invariants()
         assert e.alloc.used_pages == 0
+
+
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+def test_sampled_decode_matches_reference(stacks, mode):
+    """Sampled decode (temperature 1.0) gives the reference's streams:
+    ``decode(key=k)`` and a refilled ``DecodeStream`` whose rows join at
+    different iterations with their own threefry keys."""
+    je, te = _engines(stacks, mode)
+    prompts = _prompts(je.cfg.vocab_size, [13, 5, 21], seed=3)
+    sids = je.prefill_many(prompts)
+    assert te.prefill_many(prompts) == sids
+    kids = [e.branch(sids[0], 3) + e.branch(sids[2], 2) for e in (je, te)]
+    assert kids[0] == kids[1]
+    ids = kids[1]
+    jout = je.decode(ids, 8, key=jax.random.key(4), temperature=1.0)
+    assert jout == te.decode(ids, 8, key=4, temperature=1.0)
+    assert len({tuple(t) for t in jout.values()}) > 1
+    keys = jax.random.split(jax.random.key(9), 2)
+    outs = []
+    for e, k in ((je, keys), (te, np.asarray(jax.random.key_data(keys)))):
+        a, b = e.branch(ids[0], 1)[0], e.branch(sids[1], 1)[0]
+        stream = e.open_stream(temperature=1.0, stop_tokens=(3,))
+        stream.add([a], k[:1], 6)
+        stream.step()
+        stream.add([b], k[1:], 6)
+        while stream.live:
+            stream.step()
+        outs.append(stream.out)
+    assert outs[0] == outs[1]
+    _assert_same_state(je, te)
 
 
 def test_paged_and_tree_modes_agree(stacks):

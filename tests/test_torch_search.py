@@ -4,8 +4,9 @@ Greedy ETS and REBASE, through ``run_search`` and ``run_search_many``,
 give the same tree (structure, tokens, finished flags, answers) and the
 same per-problem attention IO in both attention modes; PRM rewards
 match to ``rtol=1e-5`` (the reference's own rewards move by ~1e-6 with
-batch composition).  A sampled sweep on the port equals the port's solo
-runs (row-keyed sampling)."""
+batch composition).  A sampled ETS sweep (temperature 1.0) gives the
+reference's trees in both modes (threefry row keys), and a sampled sweep
+on the port equals the port's solo runs (row-keyed sampling)."""
 import numpy as np
 import pytest
 from _torch_stack import make_stacks
@@ -39,12 +40,12 @@ def stacks():
     return make_stacks(seed=0)
 
 
-def _jax_backend(stacks, mode):
+def _jax_backend(stacks, mode, temperature=0.0, seed=0):
     (lm, lp), (prm, pp), (emb, ep) = stacks[0]
     engine = JaxEngine(lm, lp, JaxEngineConfig(attention=mode, **ENGINE_KW))
     return JaxBackend(engine, prm, pp, emb, ep,
-                      JaxBackendConfig(temperature=0.0, **BACKEND_KW),
-                      answer_fn=ArithmeticTask.extract_answer)
+                      JaxBackendConfig(temperature=temperature, **BACKEND_KW),
+                      answer_fn=ArithmeticTask.extract_answer, seed=seed)
 
 
 def _torch_backend(stacks, mode, temperature=0.0, seed=0):
@@ -120,6 +121,26 @@ def test_greedy_search_matches_reference(stacks, reference, mode, method,
     backend.engine.alloc.check_invariants()
     assert backend.engine.alloc.used_pages == 0
     assert any(len(r.tree.nodes) > 4 for r in got)
+
+
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+def test_sampled_search_matches_reference(stacks, mode):
+    """Sampled ETS (temperature 1.0, seed 7): the port's sweep gives the
+    reference's trees, tokens exact, rewards to rtol 1e-5."""
+    scfg = dict(method="ets", width=4, max_steps=3)
+    ref = jax_run_search_many(
+        _jax_backend(stacks, mode, 1.0, seed=7),
+        JaxSearchConfig(ets=JaxETSConfig(**ETS_KW), **scfg), PROMPTS)
+    backend = _torch_backend(stacks, mode, 1.0, seed=7)
+    got = run_search_many(backend, SearchConfig(ets=ETSConfig(**ETS_KW),
+                                                **scfg), PROMPTS)
+    _assert_same_result(ref, got)
+    # sampling varied the branches (greedy branches of a leaf are equal)
+    kids = [tuple((n.payload or {}).get("tokens") or ())
+            for n in got[0].tree.nodes[1:]]
+    assert len(set(kids)) > 1
+    backend.engine.alloc.check_invariants()
+    assert backend.engine.alloc.used_pages == 0
 
 
 def test_sampled_sweep_equals_solo_runs(stacks):
