@@ -39,7 +39,28 @@ exits non-zero):
   6. profile — ``torch.profiler`` over 8 tree-mode decode steps of the
                same sweep (32 rows): device busy share and the kernels
                that take the step's device time;
-  7. replay  — each kernel against its plain version on the largest
+  7. streamed — one 2048-token prompt prefilled one-shot (flash kernel)
+               and in 512-token streamed segments: K/V gap per layer
+               (within 1e-3), last-token logit gap, equal 8-token greedy
+               continuations (paged kernel), prefill tok/s and peak
+               memory of each;
+  8. swap    — one problem in paged mode (256-token prompt, 8 branches,
+               32 tokens each) swapped out to pinned host memory, its
+               freed pages overwritten, swapped back in, twice (fresh,
+               then cached pinned buffers): bitwise equal pages, the
+               next 8 greedy tokens of a twin that never swapped; MiB
+               moved, swap-out / copy / swap-in ms and GB/s beside the
+               host link's nominal 64 GB/s;
+  9. serving — stage costs measured on the card, then 8 Poisson requests
+               (7 prompts of 128-256 tokens and the 2048-token one,
+               priorities, deadlines) through ``ServingLoop`` in tree
+               mode on a pool too small for them, refill then lock-step:
+               SLO report, decode tok/s, swap and IO counters, token
+               agreement between the runs; every request must finish,
+               demotion must fire and every page come back, and the
+               tree kernel's largest call of the run is held against its
+               plain version;
+ 10. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
@@ -50,7 +71,10 @@ exits non-zero):
                also beside the bound of the logical bytes its rows
                stream;
 
-then the kernels line ``{"kernels": [...]}`` and, last, the device line.
+then the kernels line ``{"kernels": [...]}`` (``launches``: the sum
+over the paths driven with the counts zeroed just before each — the
+main sweep in both modes, streamed, swap and both serving runs —
+``launches_by_path`` each path's) and, last, the device line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -363,7 +387,8 @@ def check(name, dtype, out, ref, case, bf16_rounded=False):
     reference tests' (rtol 0), or for ``bf16_rounded`` the fp32 tol with
     rtol ``RTOL_BF16_ROUNDED``."""
     import torch
-    torch.cuda.synchronize()
+    if out.is_cuda:
+        torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     tol, rtol = TOL[(name, "float32")], 0.0
@@ -474,6 +499,22 @@ class Recorder:
             setattr(self.ops, n, f)
 
 
+def check_recorded(recorder, path):
+    """Hold the largest call each kernel wrapper received on ``path``
+    (kept by ``recorder``) against its plain version, at the parity
+    phase's tolerances.  These launches are not counted to the path."""
+    from repro_torch.kernels import ref
+    if not recorder.best:
+        fail(f"{path}: no kernel call was recorded")
+    for name, (_, args, kw) in sorted(recorder.best.items()):
+        plain = getattr(ref, name + "_ref")
+        check(name, args[0].dtype, recorder.orig[name](*args, **kw),
+              plain(*args, **{k: v for k, v in kw.items()
+                              if k in ("scale", "causal", "window")}),
+              f"the {path} path's largest call, shapes "
+              f"{[list(a.shape) for a in args]}", bf16_rounded=True)
+
+
 def run_mode(torch, np, mode, models, prompts, recorder=None,
              temperature=0.0, max_steps=3, phase="main"):
     """One ETS sweep over ``prompts`` in attention ``mode``; greedy runs
@@ -539,9 +580,15 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
         "unique_pages_streamed": engine.unique_pages_streamed,
         "logical_pages_streamed": engine.logical_pages_streamed,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "n_swap_outs": engine.n_swap_outs,
+        "swapped_out_pages": engine.swapped_out_pages,
         "nodes": [len(r.tree.nodes) for r in results],
     }
     emit(info)
+    if engine.n_swap_outs or engine.swapped_out_pages:
+        fail(f"{phase} {mode}: the roomy pool demoted a problem: "
+             f"{engine.n_swap_outs} swap-outs, {engine.swapped_out_pages} "
+             f"pages")
     return results, engine.logits_trace, launches, info
 
 
@@ -879,7 +926,439 @@ def phase_main(torch, np, timer):
     launches = {n: l_p[n] + l_t[n] for n in l_p}
     phase_sampling(torch, np, models, prompts, timer)
     phase_profile(torch, models, prompts)
-    return recorder, launches
+    return recorder, {"main": launches}, models, prompts
+
+
+# ---------------------------------------------------------------------------
+# slice 4: streamed prefill, swap, the online serving loop
+# ---------------------------------------------------------------------------
+
+# streamed vs one-shot prefill at full width: K/V of a 2048-token prompt
+TOL_STREAMED_KV = 1e-3
+LONG_PROMPT = 2048
+PREFILL_CHUNK = 512
+HOST_LINK_GBS = 64.0    # PCIe Gen5 x16, nominal, per direction
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_s(torch, dev, fn):
+    """(result, seconds) of ``fn()``, synchronised around it."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def event_ms(torch, dev, fn):
+    """(result, ms) of ``fn()`` between two CUDA events on the current
+    stream (host clock on the CPU)."""
+    if torch.device(dev).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def peak_reset(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def peak_bytes(torch, dev):
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated()
+    return 0
+
+
+def launch_counts(ops):
+    return {k.name: k.launches for k in ops.KERNELS}
+
+
+def seq_kv(engine, sid):
+    """Per-layer (K, V) of a sequence's context, cloned."""
+    h = engine.alloc.seqs[sid]
+    return [tuple(t.clone() for t in engine.pool.gather_kv(
+        l, h.block_table, h.length)) for l in range(engine.pool.n_layers)]
+
+
+def phase_streamed(torch, models, prompt, smi, dev="cuda"):
+    """One long prompt prefilled one-shot (flash kernel, one bucket) and
+    streamed in ``PREFILL_CHUNK``-token segments: K/V per layer, the
+    last-token logits and the 8-token greedy continuation must agree."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, PagedEngine
+    (lm, lp), _, _ = models
+    n_pages = -(-(len(prompt) + 64) // 16) + 8
+    runs, cont = {}, {}
+    recorder = Recorder(ops)
+    ops.reset_launch_counts()
+    with recorder:
+        for name, chunk in (("one_shot", None), ("streamed", PREFILL_CHUNK)):
+            engine = PagedEngine(lm, lp, EngineConfig(
+                n_pages=n_pages, page_size=16, max_batch=8,
+                max_seq_len=len(prompt) + 64, attention="paged",
+                trace_logits=True, prefill_chunk_tokens=chunk), device=dev)
+            engine.free(engine.prefill(prompt))       # warm-up, untimed
+            engine.reset_counters()
+            base = peak_reset(torch, dev)
+            sid, secs = timed_s(torch, dev, lambda: engine.prefill(prompt))
+            peak = peak_bytes(torch, dev)
+            runs[name] = dict(secs=secs, peak=peak, base=base,
+                              calls=engine.n_prefill_calls,
+                              logits=engine.logits_trace[-1],
+                              kv=seq_kv(engine, sid))
+            recorder.layer0_ptr = engine.pool.k.data_ptr()
+            cont[name] = engine.decode([sid], 8, key=0,
+                                       temperature=0.0)[sid]
+    launches = launch_counts(ops)
+    one, st = runs["one_shot"], runs["streamed"]
+    kv_gap = [max(float((a - b).abs().max()) for a, b in zip(x, y))
+              for x, y in zip(one["kv"], st["kv"])]
+    kv_max = [max(float(t.abs().max()) for t in x) for x in one["kv"]]
+    logit_gap = float(np.abs(one["logits"] - st["logits"]).max())
+    ctx = len(prompt) - 1
+    emit({"phase": "streamed", "nvidia_smi": smi, "prompt_tokens":
+          len(prompt), "chunk": PREFILL_CHUNK,
+          "prefill_calls": {n: r["calls"] for n, r in runs.items()},
+          "max_abs_kv_gap_by_layer": kv_gap, "tol_kv": TOL_STREAMED_KV,
+          "max_abs_kv_by_layer": kv_max,
+          "last_logits_max_abs_gap": logit_gap,
+          "prefill_tok_s": {n: ctx / r["secs"] for n, r in runs.items()},
+          "prefill_s": {n: r["secs"] for n, r in runs.items()},
+          "max_memory_allocated": {n: r["peak"] for n, r in runs.items()},
+          "peak_over_base_bytes": {n: r["peak"] - r["base"]
+                                   for n, r in runs.items()},
+          "continuation": cont, "launches": launches})
+    if st["calls"] != -(-ctx // PREFILL_CHUNK) or one["calls"] != 1:
+        fail(f"streamed prefill ran {st['calls']} segments, one-shot "
+             f"{one['calls']} calls")
+    if max(kv_gap) > TOL_STREAMED_KV:
+        fail(f"streamed K/V differ from one-shot by {max(kv_gap)}")
+    if cont["one_shot"] != cont["streamed"]:
+        fail(f"greedy continuations differ: {cont}")
+    if not (launches["flash_prefill"] and launches["paged_attention"]):
+        fail(f"a kernel of the streamed phase did not launch: {launches}")
+    # the one-shot 2048-token bucket and the decode over its 128+ pages
+    check_recorded(recorder, "streamed")
+    return launches
+
+
+def swap_round(torch, engine, every, dev):
+    """Swap ``every`` (one namespace) out, prefill a filler over exactly
+    the freed pages, resolve the host copy, swap back in, free the
+    filler; fail unless the K/V come back bitwise.  Returns the round's
+    sizes and times: ``swap_out_ms`` spans the snapshot and the host's
+    bookkeeping and pinned allocation (CUDA events on the compute
+    stream), ``d2h_copy_ms`` the copy alone (events on the side
+    stream), ``swap_in_ms`` the host-to-device copy plus the scatter."""
+    ns = engine.alloc.seqs[every[0]].ns
+    before = {s: seq_kv(engine, s) for s in every}
+    n, out_ms = event_ms(torch, dev, lambda: engine.swap_out(every))
+    (stale, gather), = engine._spill[ns]
+    filler = engine.prefill(list(range(1000, 1000 + 16 * n)))
+    if sorted(engine.alloc.seqs[filler].block_table) != sorted(stale):
+        fail("the filler did not reuse the freed pages")
+    _, resolve_ms = event_ms(torch, dev, gather.resolve)
+    got, in_ms = event_ms(torch, dev, lambda: engine.swap_in(every))
+    if got != n:
+        fail(f"swap_in restored {got} of {n} pages")
+    for s in every:
+        for (k0, v0), (k1, v1) in zip(before[s], seq_kv(engine, s)):
+            if not (torch.equal(k0, k1) and torch.equal(v0, v1)):
+                fail(f"sequence {s}: restored K/V differ")
+    engine.free(filler)
+    gb = 2 * engine.pool.k[:, :n].numel() * engine.pool.k.element_size() \
+        / 1e9
+    copy_ms = gather.copy_ms()
+    return {"pages": n, "mib": gb * 1e9 / 2 ** 20, "swap_out_ms": out_ms,
+            "resolve_ms": resolve_ms, "d2h_copy_ms": copy_ms,
+            "d2h_gb_s": gb / (copy_ms / 1e3) if copy_ms else None,
+            "swap_in_ms": in_ms, "h2d_scatter_gb_s": gb / (in_ms / 1e3),
+            "pinned": all(t.is_pinned() for t in gather._host_t)}
+
+
+def phase_swap(torch, models, prompt, smi, dev="cuda"):
+    """One problem in paged mode (a prompt, 8 branches, 32 decoded tokens
+    each) swapped out whole, its freed pages overwritten by a filler's
+    prefill, then swapped back in, twice (the first round allocates the
+    pinned buffers, the second reuses them from the caching host
+    allocator): bitwise equal pages, the same next 8 greedy tokens as a
+    twin engine that never swapped."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, PagedEngine
+    (lm, lp), _, _ = models
+    ecfg = EngineConfig(n_pages=160, page_size=16, max_batch=8,
+                        max_seq_len=1024, attention="paged")
+    outs, rounds = [], []
+    recorder = Recorder(ops)
+    ops.reset_launch_counts()
+    with recorder:
+        for swap in (False, True):
+            engine = PagedEngine(lm, lp, ecfg, device=dev)
+            recorder.layer0_ptr = engine.pool.k.data_ptr()
+            sid = engine.prefill(prompt)
+            ids = engine.branch(sid, 8)
+            engine.decode(ids, 32, key=0, temperature=0.0)
+            if swap:
+                rounds = [swap_round(torch, engine, [sid] + ids, dev)
+                          for _ in range(2)]
+            outs.append([engine.decode(ids, 8, key=0, temperature=0.0)[i]
+                         for i in ids])
+            engine.alloc.check_invariants()
+    launches = launch_counts(ops)
+    emit({"phase": "swap", "nvidia_smi": smi, "prompt_tokens": len(prompt),
+          "branches": 8, "decoded_tokens_per_branch": 32,
+          "rounds": rounds, "host_link_gb_s_nominal": HOST_LINK_GBS,
+          "next_tokens_equal": outs[0] == outs[1], "launches": launches})
+    if outs[0] != outs[1]:
+        fail("decode after swap differs from the twin that never swapped")
+    if torch.device(dev).type == "cuda" and not all(r["pinned"]
+                                                    for r in rounds):
+        fail("the spill buffer is not pinned host memory")
+    if not (launches["paged_attention"] and launches["flash_prefill"]):
+        fail(f"a kernel of the swap phase did not launch: {launches}")
+    # 8 rows over 18-19 pages each, and the filler's prefill bucket
+    check_recorded(recorder, "swap")
+    return launches
+
+
+class MarginLog:
+    """Per decoded token, keyed by (seq id, position): the row's top-2
+    logits (values and ids), and the seconds spent in decode steps."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.top = {}
+        self.decode_s = 0.0
+
+    def __enter__(self):
+        from repro_torch.serving import engine as engine_mod
+        self.mod = engine_mod
+        self.orig_sample = engine_mod.sample_tokens_rowwise
+        self.orig_step = engine_mod.DecodeStream.step
+        log, torch = self, self.torch
+
+        def sample(keys, logits, temperature):
+            v, i = torch.topk(logits.float(), 2, dim=-1)
+            log._last = (v.cpu().numpy(), i.cpu().numpy())
+            return log.orig_sample(keys, logits, temperature)
+
+        def step(stream):
+            rows = list(stream._slot_seq)
+            eng = stream.engine
+            pos = {i: len(eng.tokens[i]) for i in rows if i is not None}
+            sync(torch, log.dev)
+            t0 = time.perf_counter()
+            out = log.orig_step(stream)
+            sync(torch, log.dev)
+            log.decode_s += time.perf_counter() - t0
+            v, ix = log._last
+            for j, i in enumerate(rows):
+                if i is not None:
+                    log.top[(i, pos[i])] = (v[j], ix[j])
+            return out
+
+        engine_mod.sample_tokens_rowwise = sample
+        engine_mod.DecodeStream.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_tokens_rowwise = self.orig_sample
+        self.mod.DecodeStream.step = self.orig_step
+
+
+def serving_agreement(res_a, log_a, res_b, log_b):
+    """Token agreement of two runs' trees, and at the first disagreeing
+    token the larger, over the runs, of the gap between the two
+    candidates' logits (None where a candidate is not in a row's top 2)."""
+    n_same = n_all = 0
+    first = None
+    for r, (a, b) in enumerate(zip(res_a, res_b)):
+        for na, nb in zip(a.tree.nodes, b.tree.nodes):
+            ta = (na.payload or {}).get("tokens") or []
+            tb = (nb.payload or {}).get("tokens") or []
+            n_all += max(len(ta), len(tb))
+            n_same += sum(x == y for x, y in zip(ta, tb))
+            if first is not None or ta == tb:
+                continue
+            t = next((k for k, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                     min(len(ta), len(tb)))
+            pos, node = t, na
+            while node.parent is not None:
+                node = a.tree.node(node.parent)
+                pos += node.n_tokens
+            gaps = []
+            for nd, log in ((na, log_a), (nb, log_b)):
+                v, ix = log.top.get((nd.payload["seq_id"], pos),
+                                    (None, None))
+                cand = {int(i): float(x) for x, i in zip(v, ix)} \
+                    if v is not None else {}
+                pair = [ta[t] if t < len(ta) else None,
+                        tb[t] if t < len(tb) else None]
+                gaps.append(abs(cand[pair[0]] - cand[pair[1]])
+                            if all(p in cand for p in pair) else None)
+            first = {"request": r, "node": na.id, "token": t,
+                     "tokens": [ta[t] if t < len(ta) else None,
+                                tb[t] if t < len(tb) else None],
+                     "gap": max((g for g in gaps if g is not None),
+                                default=None)}
+    return n_same / max(n_all, 1), first
+
+
+def measure_stage_costs(torch, models, prompt, dev="cuda"):
+    """Seconds of one tree-mode decode iteration (8 rows), one PRM call
+    (8 rows x 512-token bucket), one embedder call (8 steps of 32
+    tokens) and one prefill (``prompt``), each after a warm-up."""
+    from repro_torch.serving import EngineConfig, PagedEngine
+    (lm, lp), (prm, pp), (emb, ep) = models
+    engine = PagedEngine(lm, lp, EngineConfig(
+        n_pages=256, page_size=16, max_batch=32, max_seq_len=1024,
+        attention="tree"), device=dev)
+    engine.free(engine.prefill(prompt))
+    sid, prefill_s = timed_s(torch, dev, lambda: engine.prefill(prompt))
+    ids = engine.branch(sid, 8)
+    engine.decode(ids, 2, key=0, temperature=0.0)
+    steps0 = engine.n_decode_steps
+    _, dec_s = timed_s(torch, dev, lambda: engine.decode(
+        ids, 8, key=0, temperature=0.0))
+    decode_iter_s = dec_s / (engine.n_decode_steps - steps0)
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, 128000, (8, 512)), device=dev)
+    prm_p = prm.cast_params(pp)
+    emb_p = emb.cast_params(ep)
+    prm.reward(prm_p, {"tokens": toks})
+    _, score_s = timed_s(torch, dev, lambda: prm.reward(
+        prm_p, {"tokens": toks}))
+    etoks = toks[:, :32].remainder(emb.cfg.vocab_size)
+    emb.hidden(emb_p, {"tokens": etoks})
+    _, embed_s = timed_s(torch, dev, lambda: emb.hidden(
+        emb_p, {"tokens": etoks}))
+    return {"decode_iter_s": decode_iter_s, "score_s": score_s,
+            "embed_s": embed_s, "prefill_s": prefill_s}
+
+
+SERVING_PAGES = 224      # the long problem alone holds ~128 + 8 x 3
+
+
+def serving_prompts(long_prompt):
+    rng = np.random.default_rng(2)
+    short = [list(map(int, rng.integers(0, 128000, int(n))))
+             for n in rng.integers(128, 257, 7)]
+    return short[:2] + [long_prompt] + short[2:]
+
+
+def run_serving(torch, models, prompts, costs, refill, dev="cuda",
+                n_pages=SERVING_PAGES, recorder=None):
+    """Serve ``prompts`` as Poisson requests through ``ServingLoop`` on a
+    pool of ``n_pages``, in tree mode with streamed long prompts;
+    ``recorder`` (if given) keeps the largest call of each kernel."""
+    from repro_torch.core import (ETSConfig, SearchConfig, ServingConfig,
+                                  ServingLoop, poisson_requests)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
+                                     PagedEngine)
+    (lm, lp), (prm, pp), (emb, ep) = models
+    engine = PagedEngine(lm, lp, EngineConfig(
+        n_pages=n_pages, page_size=16, max_batch=32,
+        max_seq_len=max(len(p) for p in prompts) + 256, attention="tree",
+        prefill_chunk_tokens=PREFILL_CHUNK), device=dev)
+    backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(
+        step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
+        max_step_tokens=32, max_depth=8, temperature=0.0),
+        answer_fn=lambda toks: None, device=dev)
+    scfg = SearchConfig(method="ets", width=8, max_steps=3,
+                        ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
+                                      cluster_threshold=0.2))
+    reqs = poisson_requests(prompts, rate=0.05, seed=0, priorities=[0, 1],
+                            deadline_slack=300)
+    loop = ServingLoop(backend, scfg, reqs, max_live=4,
+                       cfg=ServingConfig.from_stage_costs(costs,
+                                                          refill=refill))
+    if recorder is not None:
+        recorder.layer0_ptr = engine.pool.k.data_ptr()
+    ops.reset_launch_counts()
+    with MarginLog(torch, dev) as log, \
+            recorder or contextlib.nullcontext():
+        results, wall = timed_s(torch, dev, loop.run)
+    launches = launch_counts(ops)
+    return loop, engine, results, wall, launches, log
+
+
+def phase_serving(torch, models, long_prompt, smi, dev="cuda"):
+    """Requests arriving over time at a server whose pool is too small:
+    refill, then lock-step; every request finishes, problems are demoted
+    to pinned host memory and restored, the pool drains."""
+    costs = measure_stage_costs(torch, models, long_prompt[:256], dev)
+    prompts = serving_prompts(long_prompt)
+    emit({"phase": "stage_costs", "nvidia_smi": smi, **costs})
+    from repro_torch.kernels import ops
+    runs, total = {}, {}
+    recorder = Recorder(ops)
+    for refill in (True, False):
+        loop, engine, results, wall, launches, log = run_serving(
+            torch, models, prompts, costs, refill, dev,
+            recorder=recorder if refill else None)
+        report = loop.slo.report()
+        name = "refill" if refill else "lockstep"
+        emit({"phase": "serving", "nvidia_smi": smi, "mode": name,
+              "n_pages": engine.ecfg.n_pages, "requests": len(prompts),
+              "slo": report, "clock": loop.clock, "wall_s": wall,
+              "decode_s": log.decode_s,
+              "decode_tok_s": engine.n_decoded_tokens / max(log.decode_s,
+                                                           1e-9),
+              "decoded_tokens": engine.n_decoded_tokens,
+              "decode_steps": engine.n_decode_steps,
+              "prefill_calls": engine.n_prefill_calls,
+              "n_swap_outs": engine.n_swap_outs,
+              "swapped_out_pages": engine.swapped_out_pages,
+              "swapped_in_pages": engine.swapped_in_pages,
+              "demotions": loop.stats.demotions,
+              "unique_pages_streamed": engine.unique_pages_streamed,
+              "logical_pages_streamed": engine.logical_pages_streamed,
+              "launches": launches})
+        if len(results) != len(prompts) or \
+                report["n_finished"] != len(prompts):
+            fail(f"{name}: {report['n_finished']} of {len(prompts)} "
+                 f"requests finished")
+        if not (engine.n_swap_outs >= 1 and engine.swapped_out_pages
+                == engine.swapped_in_pages > 0):
+            fail(f"{name}: no demotion, or not every page restored: "
+                 f"{engine.n_swap_outs} swap-outs, "
+                 f"{engine.swapped_out_pages} out, "
+                 f"{engine.swapped_in_pages} in")
+        if engine.alloc.used_pages or engine.alloc.swapped_pages:
+            fail(f"{name}: {engine.alloc.used_pages} pages held and "
+                 f"{engine.alloc.swapped_pages} parked at the end")
+        engine.alloc.check_invariants()
+        if not (launches["tree_attention"] and launches["flash_prefill"]):
+            fail(f"{name}: a kernel of the path did not launch: {launches}")
+        runs[name] = (results, log, report)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    # the tree kernel's longest page lists so far (a shared prefix of
+    # ~128 pages under 8 leaves) and the largest prefill bucket
+    check_recorded(recorder, "serving")
+    agree, first = serving_agreement(runs["refill"][0], runs["refill"][1],
+                                     runs["lockstep"][0],
+                                     runs["lockstep"][1])
+    emit({"phase": "serving_modes", "nvidia_smi": smi,
+          "token_agreement": agree,
+          "first_disagreement": first,
+          "p99_tta": {n: runs[n][2]["p99_tta"] for n in runs}})
+    return total
 
 
 def main() -> int:
@@ -892,12 +1371,24 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
     phase_parity(torch, np)
     timer = Timer(torch)
-    recorder, launches = phase_main(torch, np, timer)
+    recorder, by_path, models, prompts = phase_main(torch, np, timer)
+    rng = np.random.default_rng(1)
+    long_prompt = list(map(int, rng.integers(0, 128000, LONG_PROMPT)))
+    swap_prompt = list(map(int, rng.integers(0, 128000, 256)))
+    by_path["streamed"] = phase_streamed(torch, models, long_prompt, smi)
+    by_path["swap"] = phase_swap(torch, models, swap_prompt, smi)
+    by_path["serving"] = phase_serving(torch, models, long_prompt, smi)
+    from repro_torch.kernels import ops
+    launches = {k.name: sum(p[k.name] for p in by_path.values())
+                for k in ops.KERNELS}
     lines = phase_replay(torch, recorder, launches, timer)
+    for line in lines:
+        line["launches_by_path"] = {p: n[line["name"]]
+                                    for p, n in by_path.items()}
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ Public API:
   SweepScheduler, run_search_many    — continuous cross-problem batching
   AdaptiveConfig, BudgetController   — difficulty-adaptive width + budget
   mcts_step                          — Adaptive Parallel MCTS step policy
+  Request, poisson_requests, load_trace, SLOTracker,
+  ServingConfig, ServingLoop         — online serving with SLO tracking
 """
 from .clustering import cluster_embeddings  # noqa: F401
 from .controllers import (AdaptiveConfig, Backend,  # noqa: F401
@@ -19,4 +21,6 @@ from .ets import ETSConfig, ETSStep, ets_prune, mcts_step  # noqa: F401
 from .ilp import (SelectionProblem, SelectionResult, greedy_select,  # noqa: F401
                   milp_select, solve)
 from .rebase import rebase_reweight, rebase_weights  # noqa: F401
+from .serving import (Request, ServingConfig, ServingLoop,  # noqa: F401
+                      SLOTracker, load_trace, poisson_requests)
 from .tree import Node, SearchTree  # noqa: F401

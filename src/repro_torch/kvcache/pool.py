@@ -5,13 +5,23 @@ Unlike the reference's functional ``.at[]`` updates, writes and
 copy-on-write copies here go **in place** into the pool tensors: the
 engine owns the only reference, so no copy of the pool is ever needed.
 
+Swap path (page demotion): ``gather_pages_async`` copies a set of pages
+to host memory and ``scatter_pages`` writes host copies back into (any)
+pool pages — the device half of the engine's swap-out / swap-in.  The
+pool is written in place, so a gather first *snapshots* the pages into
+fresh device tensors on the compute stream; only the snapshot is read
+by the device-to-host copy, which runs on a side stream into pinned
+host buffers.  A prefill that reuses the freed pages right after the
+gather therefore cannot corrupt the spill.
+
 Also holds ``paged_attention_ref``, the plain PyTorch version of the
 paged decode kernel (its CPU path and its oracle on the card).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .allocator import CopyOp
@@ -32,6 +42,46 @@ def pow2_bucket(n: int, lo: int = 8) -> int:
     return b
 
 
+class PendingGather:
+    """An in-flight page gather: device snapshot taken, host copy
+    enqueued, not yet waited for.
+
+    On a CUDA pool the snapshot's copy into pinned host buffers runs on
+    a side stream between two ``events``; the snapshot tensors are
+    handed to the caching allocator with ``record_stream``, so their
+    memory is not reused before the copy has read them.  On the CPU the
+    snapshot is the host copy and there are no events.  ``resolve``
+    waits on the copy's end event only (never on the whole device) and
+    is idempotent."""
+
+    def __init__(self, host_k: torch.Tensor, host_v: torch.Tensor,
+                 events: Optional[Tuple["torch.cuda.Event",
+                                        "torch.cuda.Event"]] = None):
+        self._host_t = (host_k, host_v)
+        self._events = events           # (copy start, copy end)
+        self._host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    @property
+    def pending(self) -> bool:
+        return self._host is None
+
+    def resolve(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The gathered pages as host arrays, (L, n, S, K, hd) K and V."""
+        if self._host is None:
+            if self._events is not None:
+                self._events[1].synchronize()
+            k, v = self._host_t
+            self._host = (k.numpy(), v.numpy())
+        return self._host
+
+    def copy_ms(self) -> Optional[float]:
+        """Device time of the device-to-host copy, in ms, once resolved
+        (None on the CPU)."""
+        if self._events is None or self._host is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1])
+
+
 class KVPool:
     def __init__(self, n_layers: int, n_pages: int, page_size: int,
                  n_kv_heads: int, head_dim: int, *, dtype=torch.float32,
@@ -45,6 +95,7 @@ class KVPool:
         self.shape = shape
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self._copy_stream = None     # side stream of swap-out copies
 
     def write_tokens(self, layer_k: torch.Tensor, layer_v: torch.Tensor,
                      pages: torch.Tensor, slots: torch.Tensor) -> None:
@@ -66,6 +117,77 @@ class KVPool:
         # copying the whole page is safe: slots beyond n_valid are dead
         self.k[:, dst] = self.k[:, src]
         self.v[:, dst] = self.v[:, src]
+
+    # -- swap (device half of page demotion) ---------------------------
+    def gather_pages(self, pages: Sequence[int]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Copy the given pages to host: (L, n, S, K, hd) K and V."""
+        return self.gather_pages_async(pages).resolve()
+
+    def gather_pages_async(self, pages: Sequence[int]) -> PendingGather:
+        """Snapshot the pages and start their copy to host memory
+        without waiting for it.
+
+        The snapshot (an index gather into fresh tensors) runs on the
+        current stream, so the caller may release and reuse the source
+        pages at once: later writes to the pool are ordered after it.
+        On a CUDA pool the copy into pinned host buffers runs on a side
+        stream that waits for the snapshot, overlapping whatever the
+        compute stream does next.
+        """
+        dev = self.k.device
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+        snap_k = self.k[:, idx]
+        snap_v = self.v[:, idx]
+        if dev.type != "cuda":
+            return PendingGather(snap_k, snap_v, None)
+        compute = torch.cuda.current_stream(dev)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(dev)
+        side = self._copy_stream
+        side.wait_stream(compute)
+        host_k = torch.empty(snap_k.shape, dtype=snap_k.dtype,
+                             pin_memory=True)
+        host_v = torch.empty(snap_v.shape, dtype=snap_v.dtype,
+                             pin_memory=True)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        with torch.cuda.stream(side):
+            events[0].record(side)
+            host_k.copy_(snap_k, non_blocking=True)
+            host_v.copy_(snap_v, non_blocking=True)
+            events[1].record(side)
+        snap_k.record_stream(side)
+        snap_v.record_stream(side)
+        return PendingGather(host_k, host_v, events)
+
+    def scatter_pages(self, pages: Sequence[int], host_k: np.ndarray,
+                      host_v: np.ndarray) -> None:
+        """Write host page copies back into the pool at ``pages``, in
+        place, on the current stream.  host_k/v: (L, n, S, K, hd)."""
+        n = len(pages)
+        if n == 0:
+            return
+        assert host_k.shape[1] == n and host_v.shape[1] == n, \
+            (host_k.shape, host_v.shape, n)
+        dev = self.k.device
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+        self.k[:, idx] = torch.from_numpy(
+            np.ascontiguousarray(host_k)).to(dev, self.k.dtype)
+        self.v[:, idx] = torch.from_numpy(
+            np.ascontiguousarray(host_v)).to(dev, self.v.dtype)
+
+    def gather_kv(self, layer: int, block_table: Sequence[int],
+                  length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Materialize a contiguous (length, K, hd) view (tests)."""
+        S = self.page_size
+        idx = (torch.as_tensor(np.asarray(block_table, np.int64),
+                               device=self.k.device)[:, None] * S
+               + torch.arange(S, device=self.k.device)[None, :]
+               ).reshape(-1)[:length]
+        flat_k = self.k[layer].reshape(-1, self.n_kv_heads, self.head_dim)
+        flat_v = self.v[layer].reshape(-1, self.n_kv_heads, self.head_dim)
+        return flat_k[idx], flat_v[idx]
 
 
 # ---------------------------------------------------------------------------

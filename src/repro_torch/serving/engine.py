@@ -36,13 +36,19 @@ Attention goes through ``kernels/ops.py``: on a CUDA device the
 hand-written kernels run, on the CPU their plain PyTorch versions.
 Decode runs in float32 and the pool is float32, as in the reference.
 
-Not in this slice (raise ``NotImplementedError``): streamed long-prompt
-prefill, swap (page demotion), recurrent-state pools, meshes.
+Prompts whose context is longer than ``EngineConfig.prefill_chunk_tokens``
+prefill in page-streamed segments (``_prefill_streamed``): peak
+activation memory is one segment, not the whole prompt.  Under memory
+pressure ``swap_out`` demotes a problem's pages to a host spill buffer
+(pinned memory on a card) and ``swap_in`` restores them into fresh
+pages; decode then resumes bit-identically.
+
+Not in this slice: recurrent-state pools, meshes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +56,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from ..kvcache import KVPool, PageAllocator
-from ..kvcache.pool import pow2_bucket
+from ..kvcache.pool import PendingGather, pow2_bucket
 from .runtimes import DecodeCtx, PrefillCtx, build_runtimes, total_kv_layers
 from .sampler import as_keys, sample_tokens_rowwise, split, split_rows
 from .sampler import key as prng_key
@@ -64,7 +70,8 @@ class EngineConfig:
     max_seq_len: int = 512
     attention: str = "paged"       # "paged" | "tree" (see module doc)
     trace_logits: bool = False     # keep per-step logits (tests only)
-    # streamed long-prompt prefill: a later slice (must stay None)
+    # prompts longer than this many tokens prefill in page-streamed
+    # segments instead of one bucket (None = always one bucket)
     prefill_chunk_tokens: Optional[int] = None
 
     def __post_init__(self):
@@ -78,7 +85,6 @@ class EngineConfig:
                     f"prefill_chunk_tokens={self.prefill_chunk_tokens} is "
                     f"smaller than page_size={self.page_size}: a streamed "
                     f"segment must cover at least one pool page")
-            raise NotImplementedError("streamed prefill: later slice")
 
 
 class PagedEngine:
@@ -125,6 +131,22 @@ class PagedEngine:
         self.n_decoded_tokens = 0
         self.n_prefill_calls = 0
         self.n_prefill_tokens = 0
+        # swap accounting (page demotion under memory pressure): pages
+        # moved device->host and host->device, and the calls that moved
+        # them.  Pages out minus pages dropped while parked minus pages
+        # in == pages still in the spill buffer.
+        self.swapped_out_pages = 0
+        self.swapped_in_pages = 0
+        self.n_swap_outs = 0
+        self.n_swap_ins = 0
+        # ns -> [(stale page ids, PendingGather)]: the spill buffer a
+        # demoted problem's pages wait in until swap-in.  A list because
+        # a partial swap_out may spill one namespace in several waves.
+        self._spill: Dict[int, List[Tuple[List[int], PendingGather]]] = {}
+        # FIFO of not-yet-resolved gathers: at most _spill_buffers host
+        # copies stay un-waited-for, so demotion overlaps decode
+        self._pending_spills: List[PendingGather] = []
+        self._spill_buffers = 2
         # per-step attention IO: pages the attention streams (unique —
         # tree mode dedups shared prefixes) vs the per-leaf total a paged
         # read pattern costs, globally and per problem namespace
@@ -175,6 +197,29 @@ class PagedEngine:
         logits = self.model.logits(self.params,
                                    x[torch.arange(B, device=x.device), idx])
         return torch.where((lengths > 0)[:, None], logits, 0.0)
+
+    @torch.no_grad()
+    def _streamed_step(self, tokens, positions, pages, slots, length: int,
+                       hist_table, hist_len: int):
+        """One segment of a page-streamed long-prompt prefill.
+
+        tokens/positions/pages/slots (1,Ts): the segment, right padded
+        (positions -1, pages -> dump page); ``length`` valid segment
+        tokens; hist_table (1,Tp) the prompt's block table (pow2
+        padded); ``hist_len`` tokens already in the pool.  Each layer
+        writes the segment's K/V into the pool, then attends causally
+        within the segment and over the history gathered through the
+        block table.  Returns the segment's last-token logits (1, V).
+        """
+        x, _ = self.model.embed_inputs(self.params, {"tokens": tokens,
+                                                     "positions": positions})
+        ctx = PrefillCtx(positions=positions, pages=pages, slots=slots,
+                         lengths=None, hist_table=hist_table,
+                         hist_len=hist_len)
+        for rt in self.runtimes:
+            x = rt.prefill_streamed(self.params, x, ctx, self.pool.k,
+                                    self.pool.v)
+        return self.model.logits(self.params, x[:, length - 1])
 
     @torch.no_grad()
     def _decode_step(self, tokens, lengths, pages, slots, active, attend):
@@ -241,9 +286,17 @@ class PagedEngine:
         handles = self.alloc.new_seqs([len(c) for c in ctxs], ns=ns)
         for h, t in zip(handles, all_toks):
             self.tokens[h.seq_id] = t
+        pct = self.ecfg.prefill_chunk_tokens
+        streamed = [i for i, c in enumerate(ctxs)
+                    if pct is not None and len(c) > pct]
+        rest = [i for i in range(len(handles)) if i not in streamed]
         mb = self.ecfg.max_batch
-        for j in range(0, len(handles), mb):
-            self._prefill_chunk(handles[j:j + mb], ctxs[j:j + mb])
+        for j in range(0, len(rest), mb):
+            part = rest[j:j + mb]
+            self._prefill_chunk([handles[i] for i in part],
+                                [ctxs[i] for i in part])
+        for i in streamed:
+            self._prefill_streamed(handles[i], ctxs[i])
         return [h.seq_id for h in handles]
 
     def _prefill_chunk(self, handles, ctxs) -> None:
@@ -277,6 +330,46 @@ class PagedEngine:
         if self.ecfg.trace_logits:
             self.logits_trace.append(logits.cpu().numpy())
 
+    def _prefill_streamed(self, h, ctx) -> None:
+        """Page-streamed prefill of ONE long prompt.
+
+        The context runs in sequential segments of at most
+        ``prefill_chunk_tokens`` tokens, one engine call each: a
+        segment's K/V go into the pool, then its queries attend
+        causally within the segment and over the prompt's earlier
+        pages, gathered through the block table.  Segment lengths and
+        the history table are power-of-two bucketed, as in the
+        reference.  The last segment's last-token logits match the
+        one-shot path (same pending-token contract).
+        """
+        n = len(ctx)
+        ps = self.ecfg.page_size
+        pct = self.ecfg.prefill_chunk_tokens
+        Tp = pow2_bucket(len(h.block_table), lo=1)
+        tbl = np.zeros((1, Tp), np.int64)
+        tbl[0, :len(h.block_table)] = h.block_table
+        tbl_t = self._put(tbl)
+        for s0 in range(0, n, pct):
+            s1 = min(s0 + pct, n)
+            m = s1 - s0
+            Ts = pow2_bucket(m, lo=1)
+            tok = np.zeros((1, Ts), np.int64)
+            pos = np.full((1, Ts), -1, np.int32)
+            pages = np.full((1, Ts), self.dump_page, np.int64)
+            slots = np.zeros((1, Ts), np.int64)
+            idx = np.arange(s0, s1)
+            tok[0, :m] = ctx[s0:s1]
+            pos[0, :m] = idx
+            pages[0, :m] = tbl[0, idx // ps]
+            slots[0, :m] = idx % ps
+            self.n_prefill_calls += 1
+            self.n_prefill_tokens += m
+            logits = self._streamed_step(
+                self._put(tok), self._put(pos), self._put(pages),
+                self._put(slots), m, tbl_t, s0)
+        if self.ecfg.trace_logits:
+            self.logits_trace.append(logits.cpu().numpy())
+
     def branch(self, seq_id: int, n: int) -> List[int]:
         handles = self.alloc.branch(seq_id, n)
         for b in handles:
@@ -284,30 +377,113 @@ class PagedEngine:
         return [b.seq_id for b in handles]
 
     def free(self, seq_id: int) -> None:
+        h = self.alloc.seqs.get(seq_id)
+        ns = h.ns if h is not None else None
+        was_swapped = h.swapped if h is not None else False
         self.alloc.free_seq(seq_id)
         self.tokens.pop(seq_id, None)
+        # last swapped sequence of a parked namespace gone -> its spill
+        # can never be swapped back in; drop the host copy
+        if was_swapped and ns not in self.alloc.swapped:
+            self._drop_spill(ns)
 
-    def swap_out(self, seq_ids: Sequence[int], *, partial: bool = False):
-        raise NotImplementedError("swap: later slice")
+    # ------------------------------------------------------------------
+    # Swap: page demotion to a host spill buffer (memory pressure)
+    # ------------------------------------------------------------------
+    def swap_out(self, seq_ids: Sequence[int], *,
+                 partial: bool = False) -> int:
+        """Demote sequences: spill their exclusive pages to host, free
+        them.
 
-    def swap_in(self, seq_ids: Sequence[int]):
-        raise NotImplementedError("swap: later slice")
+        Default: ``seq_ids`` is every live sequence of one namespace.
+        With ``partial=True`` any subset of one namespace works — only
+        the subset-exclusive pages travel; shared-prefix pages stay in
+        the pool (subtree-grained spill).  The pages are snapshotted
+        *before* the allocator releases them (the pool is written in
+        place, so the snapshot is what keeps the spill safe from the
+        next prefill into those pages); the host copy is waited for
+        only when the double buffer forces it or swap-in needs it.
+        Returns the number of pages spilled.
+        """
+        ids = list(seq_ids)
+        if not ids:
+            return 0
+        ns = self.alloc.seqs[ids[0]].ns
+        if not partial and ns in self._spill:
+            raise ValueError(f"namespace {ns} is already swapped out")
+        pages = self.alloc.exclusive_pages(ids)
+        gather = self.pool.gather_pages_async(pages)
+        released = self.alloc.swap_out_seqs(ids, partial=partial)
+        assert released == pages, (released, pages)
+        self._spill.setdefault(ns, []).append((pages, gather))
+        self._pending_spills.append(gather)
+        while len(self._pending_spills) > self._spill_buffers:
+            self._pending_spills.pop(0).resolve()
+        self.swapped_out_pages += len(pages)
+        self.n_swap_outs += 1
+        return len(pages)
+
+    def swap_in(self, seq_ids: Sequence[int]) -> int:
+        """Restore a demoted problem's pages from the spill buffer.
+
+        Allocates fresh physical pages (all-or-nothing; raises
+        ``OutOfPages`` leaving everything parked when the pool lacks
+        room), writes the spilled K/V into them — waiting for any
+        still-pending host copy first — and rewrites the block tables.
+        Every spill segment of the namespace restores in one call.
+        Restored pages are exact copies, so decode resumes
+        bit-identically.  Returns the number of pages restored.
+        """
+        ids = list(seq_ids)
+        if not ids:
+            return 0
+        ns = self.alloc.seqs[ids[0]].ns
+        segments = self._spill.get(ns, [])
+        mapping = self.alloc.swap_in_seqs(ids)     # may raise OutOfPages
+        restored = 0
+        for pages, gather in segments:
+            host_k, host_v = gather.resolve()
+            # sequences freed while parked may have dropped spill pages
+            rows = [i for i, pg in enumerate(pages) if pg in mapping]
+            if len(rows) < len(pages):
+                host_k, host_v = host_k[:, rows], host_v[:, rows]
+            if rows:
+                self.pool.scatter_pages([mapping[pages[i]] for i in rows],
+                                        host_k, host_v)
+            restored += len(rows)
+        self._drop_spill(ns)
+        self.swapped_in_pages += restored
+        self.n_swap_ins += 1
+        return restored
+
+    def _drop_spill(self, ns: Optional[int]) -> None:
+        """Forget a namespace's spill segments (restored or orphaned)
+        and take their gathers out of the pending FIFO."""
+        for _, gather in self._spill.pop(ns, []):
+            if gather in self._pending_spills:
+                self._pending_spills.remove(gather)
 
     def reset(self) -> None:
-        """Free every live sequence; keeps the pool.  Cumulative
-        throughput/IO counters are kept (``reset_counters`` zeroes
-        them)."""
+        """Free every live sequence and the spill buffer; keeps the
+        pool.  Cumulative throughput/IO counters are kept
+        (``reset_counters`` zeroes them)."""
         for sid in list(self.alloc.seqs):
             self.free(sid)
+        self._spill.clear()
+        self._pending_spills.clear()
         self.logits_trace.clear()
 
     def reset_counters(self) -> None:
-        """Zero the throughput and attention-IO counters."""
+        """Zero the throughput, swap and attention-IO counters."""
         self.n_decode_calls = 0
         self.n_decode_steps = 0
         self.n_decoded_tokens = 0
         self.n_prefill_calls = 0
         self.n_prefill_tokens = 0
+        self.swapped_out_pages = 0
+        self.swapped_in_pages = 0
+        self.n_swap_outs = 0
+        self.n_swap_ins = 0
         self.unique_pages_streamed = 0
         self.logical_pages_streamed = 0
         self.unique_pages_streamed_by_ns.clear()

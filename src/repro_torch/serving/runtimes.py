@@ -5,13 +5,15 @@ The engine threads the residual stream through a stack of runtimes, one
 per ``cfg.layer_plan()`` group.  This slice ports the dense GQA runtime
 (:class:`AttentionRuntime`): the per-layer math of the reference engine
 body, op by op, with the pool writes in place and the attention through
-the kernel seam (``kernels/ops.py``).  MoE, recurrent and hybrid
+the kernel seam (``kernels/ops.py``).  A streamed prefill segment
+attends with the plain masked attention over the history it gathers
+from the pool, as the reference does.  MoE, recurrent and hybrid
 runtimes are later slices; ``build_runtimes`` refuses them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -33,11 +35,14 @@ class DecodeCtx:
 
 @dataclass
 class PrefillCtx:
-    """A right-padded prefill bucket."""
+    """A right-padded prefill bucket, or one streamed segment."""
     positions: torch.Tensor   # (B,T), -1 at padded slots
     pages: torch.Tensor       # (B,T) write pages (dump at padding)
     slots: torch.Tensor       # (B,T) write slots
-    lengths: torch.Tensor     # (B,) valid tokens per row
+    lengths: Optional[torch.Tensor]   # (B,) valid tokens per row
+    hist_table: Optional[torch.Tensor] = None   # streamed: (B,Tp) block
+    #                                             table, pow2 padded
+    hist_len: int = 0         # streamed: tokens already in the pool
 
 
 def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
@@ -84,6 +89,49 @@ def _attn_prefill_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
     return x + ffn(blk, h)
 
 
+def _streamed_hist(cfg, ctx: PrefillCtx, page_size: int):
+    """History gather indices (B, Lh) and the (B, Ts, Lh + Ts) mask of
+    one streamed segment: history slots count up to ``hist_len`` by
+    absolute position (padded table entries and page tails beyond it are
+    masked), then the segment itself, causally."""
+    B = ctx.positions.shape[0]
+    dev = ctx.positions.device
+    Lh = ctx.hist_table.shape[1] * page_size
+    hist_idx = (torch.clamp(ctx.hist_table, min=0)[:, :, None] * page_size
+                + torch.arange(page_size, device=dev)[None, None, :]
+                ).reshape(B, Lh)
+    ar = torch.arange(Lh, device=dev)
+    hist_pos = torch.where(ar < ctx.hist_len, ar, -1)[None].expand(B, Lh)
+    mask_h = A.make_mask(ctx.positions, hist_pos, causal=cfg.causal,
+                         window=cfg.sliding_window)
+    mask_s = A.make_mask(ctx.positions, ctx.positions, causal=cfg.causal,
+                         window=cfg.sliding_window)
+    return hist_idx, torch.cat([mask_h, mask_s], dim=-1)
+
+
+def _attn_streamed_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
+                         ffn, hist_idx, mask):
+    """One attention layer of a streamed prefill segment: the segment's
+    K/V go into the pool (in place), its queries attend over the
+    history gathered from the pool plus the segment itself, with the
+    plain masked attention (the reference runs no kernel here)."""
+    B, Ts = x.shape[:2]
+    scale = cfg.head_dim ** -0.5
+    h = rms_norm(blk["ln1"], x, cfg.norm_eps)
+    q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.positions)
+    pool_k[kv_l, ctx.pages, ctx.slots] = k.to(pool_k.dtype)
+    pool_v[kv_l, ctx.pages, ctx.slots] = v.to(pool_v.dtype)
+    K, hd = k.shape[2], k.shape[3]
+    hk = pool_k[kv_l].reshape(-1, K, hd)[hist_idx]      # (B, Lh, K, hd)
+    hv = pool_v[kv_l].reshape(-1, K, hd)[hist_idx]
+    kk = torch.cat([hk.to(k.dtype), k], dim=1)
+    vv = torch.cat([hv.to(v.dtype), v], dim=1)
+    y = A.masked_attention(q, kk, vv, mask, scale=scale)
+    x = x + matmul(y.reshape(B, Ts, -1), blk["attn"]["wo"])
+    h = rms_norm(blk["ln2"], x, cfg.norm_eps)
+    return x + ffn(blk, h)
+
+
 class AttentionRuntime:
     """Dense GQA layers over the paged pool, addressed at
     ``kv_offset .. kv_offset+count`` in the pool's layer axis."""
@@ -115,6 +163,15 @@ class AttentionRuntime:
             x = _attn_prefill_layer(self.cfg, layer_slice(gp, l), x, ctx,
                                     self.kv_offset + l, pool_k, pool_v,
                                     self._ffn)
+        return x
+
+    def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v):
+        hist_idx, mask = _streamed_hist(self.cfg, ctx, pool_k.shape[2])
+        gp = params["groups"][self.gi]
+        for l in range(self.count):
+            x = _attn_streamed_layer(self.cfg, layer_slice(gp, l), x, ctx,
+                                     self.kv_offset + l, pool_k, pool_v,
+                                     self._ffn, hist_idx, mask)
         return x
 
 

@@ -27,10 +27,10 @@ from ``fold_in(step_key, i)`` (``sampler``).
 ILP decisions become physical page releases — and ``finish_problem``
 releases what the final step left behind.
 
-The memory-pressure protocol (``capacity``, ``swap_out_problem`` and
-the rest) is a later slice: without ``capacity`` the sweep scheduler
-runs with pressure management off, so pools must be sized for the
-whole sweep.
+Memory pressure: ``capacity``, ``prompt_pages``, ``swap_out_problem``
+and the rest are the backend half of the sweep scheduler's admission
+and demotion protocol (all in pages), so a sweep whose working set
+outgrows the pool parks problems in host memory instead of failing.
 """
 from __future__ import annotations
 
@@ -341,8 +341,7 @@ class LMBackend:
             if sid in self.engine.alloc.seqs:
                 self.engine.free(sid)
             pool.discard(sid)
-        stats = self.engine.alloc.ns_page_stats(
-            ns, seq_ids=sorted(self._ns_seqs.get(ns, ())))
+        stats = self._ns_stats(ns)
         # the engine's cumulative per-problem IO counters -> per-step
         # deltas (what this step's decode streamed for this problem)
         uniq = self.engine.unique_pages_streamed_by_ns.get(ns, 0)
@@ -368,6 +367,101 @@ class LMBackend:
             "pages_streamed_per_step": uniq / steps,
             "io_sharing_ratio": logical / max(uniq, 1),
         }
+
+    # -- memory pressure (the scheduler's admission/demotion protocol) --
+    def _ns_stats(self, ns) -> Dict[str, int]:
+        """This problem's page accounting, over its own live sequences."""
+        return self.engine.alloc.ns_page_stats(
+            ns, seq_ids=sorted(self._ns_seqs.get(ns, ())))
+
+    def capacity(self) -> Dict[str, int]:
+        """Pool capacity: total allocatable pages and currently free."""
+        alloc = self.engine.alloc
+        return {"total_pages": alloc.n_pages,
+                "free_pages": len(alloc.free)}
+
+    def prompt_pages(self, prompt_tokens: Sequence[int]) -> int:
+        """Pages one prompt's prefill holds (``tokens[:-1]`` in pages,
+        rounded up so the pending token's first append is covered)."""
+        ps = self.engine.ecfg.page_size
+        return max(-(-len(prompt_tokens) // ps), 1)
+
+    def step_pages_per_branch(self) -> int:
+        """Worst-case page growth of ONE branch over ONE search step: a
+        CoW of the shared last page plus pages for the step's new
+        tokens."""
+        ps = self.engine.ecfg.page_size
+        return 1 + -(-self.bcfg.max_step_tokens // ps)
+
+    def problem_pages(self, tree: SearchTree) -> int:
+        """Physical pages this problem holds right now."""
+        ns = tree.node(0).payload["ns"]
+        return self._ns_stats(ns).get("physical_pages", 0)
+
+    def problem_swapped_pages(self, tree: SearchTree) -> int:
+        """Pages this problem has parked in the host spill buffer."""
+        ns = tree.node(0).payload["ns"]
+        return self._ns_stats(ns).get("swapped_pages", 0)
+
+    def swap_out_problem(self, tree: SearchTree,
+                         need_pages: Optional[int] = None) -> int:
+        """Demote one problem: spill its engine sequences' pages to the
+        host buffer and release them (``engine.swap_out``).
+
+        With ``need_pages`` set (subtree-grained spill), only enough
+        sequences to release at least that many pages are demoted, so
+        the shared prefix and the rest of the problem's KV stay in the
+        pool.  The whole problem still parks.
+        """
+        ns = tree.node(0).payload["ns"]
+        ids = sorted(self._ns_seqs.get(ns, ()))
+        if need_pages is not None and ids:
+            chosen = self._pick_spill_subset(ids, need_pages)
+            if len(chosen) < len(ids):
+                return self.engine.swap_out(chosen, partial=True)
+        return self.engine.swap_out(ids)
+
+    def _pick_spill_subset(self, ids: Sequence[int],
+                           need_pages: int) -> List[int]:
+        """Greedy subset for a partial demotion: repeatedly add the
+        sequence that releases the most additional pages (pages whose
+        every reference falls inside the chosen set), smallest seq id on
+        ties, until ``need_pages`` pages free.  Deterministic given the
+        allocator state."""
+        alloc = self.engine.alloc
+        chosen: List[int] = []
+        in_set: Dict[int, int] = {}
+        released = 0
+        remaining = list(ids)
+        while remaining and released < need_pages:
+            best, best_gain = None, -1
+            for s in remaining:
+                gain = 0
+                seen: Dict[int, int] = {}
+                for pg in alloc.seqs[s].block_table:
+                    seen[pg] = seen.get(pg, 0) + 1
+                for pg, n in seen.items():
+                    if in_set.get(pg, 0) + n == alloc.refcount[pg]:
+                        gain += 1
+                if gain > best_gain:
+                    best, best_gain = s, gain
+            chosen.append(best)
+            remaining.remove(best)
+            for pg in alloc.seqs[best].block_table:
+                in_set[pg] = in_set.get(pg, 0) + 1
+            released += best_gain
+        return chosen
+
+    def swap_in_problem(self, tree: SearchTree) -> int:
+        """Restore a demoted problem's swapped sequences (exact copies:
+        its decode streams resume bit-identically).  Raises
+        ``OutOfPages`` and leaves the problem parked when the pool still
+        lacks room."""
+        ns = tree.node(0).payload["ns"]
+        seqs = self.engine.alloc.seqs
+        ids = [s for s in sorted(self._ns_seqs.get(ns, ()))
+               if s in seqs and seqs[s].swapped]
+        return self.engine.swap_in(ids)
 
     def finish_problem(self, tree: SearchTree) -> None:
         """Retire one problem: free whatever engine sequences its final

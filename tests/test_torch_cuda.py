@@ -277,3 +277,57 @@ def test_engine_on_card_matches_cpu(cuda, mode):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
     kernel = ops.PAGED if mode == "paged" else ops.TREE
     assert kernel.launches > 0 and ops.FLASH.launches > 0
+
+
+@pytest.mark.cuda
+def test_swap_pinned_roundtrip_on_card(cuda):
+    """Swap-out on the card snapshots the pages and copies them into
+    pinned host memory on a side stream; the freed pages are overwritten
+    (another problem's prefill) before ``resolve()``.  The host copy and
+    the restored pages are bitwise the originals, and sampled decode
+    resumes as on a twin engine that never swapped."""
+    cfg = dataclasses.replace(get_config("tiny-lm"), n_layers=2, d_model=128,
+                              n_heads=4, n_kv_heads=2, head_dim=32,
+                              vocab_size=64)
+    lm = build_model(cfg, device=cuda)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+    ecfg = EngineConfig(n_pages=64, page_size=8, max_batch=8,
+                        max_seq_len=96, attention="paged")
+    prompt = list(map(int, RNG.integers(0, 64, 40)))
+    filler_tokens = list(map(int, RNG.integers(0, 64, 90)))
+
+    def seq_kv(e, ids):
+        return [[t.clone() for l in range(e.pool.n_layers)
+                 for t in e.pool.gather_kv(l, e.alloc.seqs[s].block_table,
+                                           e.alloc.seqs[s].length)]
+                for s in ids]
+
+    streams = []
+    for swap in (False, True):
+        e = PagedEngine(lm, params, ecfg, device=cuda)
+        sid = e.prefill(prompt)
+        ids = [sid] + e.branch(sid, 3)
+        e.decode(ids[1:], 5, key=1, temperature=1.0)
+        if swap:
+            before = seq_kv(e, ids)
+            pages = e.alloc.exclusive_pages(ids)
+            snap = (e.pool.k[:, pages].cpu(), e.pool.v[:, pages].cpu())
+            assert e.swap_out(ids) == len(pages)
+            (stale, gather), = e._spill[e.alloc.seqs[sid].ns]
+            assert stale == pages
+            assert all(t.is_pinned() for t in gather._host_t)
+            # the freed pages are reused before the host copy is read
+            filler = e.prefill(filler_tokens[:8 * len(pages)])
+            assert sorted(e.alloc.seqs[filler].block_table) == sorted(pages)
+            host_k, host_v = gather.resolve()
+            assert torch.equal(torch.from_numpy(host_k), snap[0])
+            assert torch.equal(torch.from_numpy(host_v), snap[1])
+            e.free(filler)
+            assert e.swap_in(ids) == len(pages)
+            after = seq_kv(e, ids)
+            assert all(torch.equal(a, b) for x, y in zip(before, after)
+                       for a, b in zip(x, y))
+        streams.append(list(e.decode(ids[1:], 6, key=2,
+                                     temperature=1.0).values()))
+        e.alloc.check_invariants()
+    assert streams[0] == streams[1]

@@ -22,7 +22,8 @@ SUBMODULES = [
     "repro_torch.configs", "repro_torch.core", "repro_torch.core.controllers",
     "repro_torch.core.ets", "repro_torch.core.ilp",
     "repro_torch.core.clustering", "repro_torch.core.rebase",
-    "repro_torch.core.tree", "repro_torch.kvcache",
+    "repro_torch.core.tree", "repro_torch.core.serving",
+    "repro_torch.kvcache",
     "repro_torch.kvcache.allocator", "repro_torch.kvcache.pool",
     "repro_torch.kvcache.tree_meta", "repro_torch.kernels",
     "repro_torch.kernels.build", "repro_torch.kernels.ops",
@@ -96,21 +97,29 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_slice_boundaries_raise_not_implemented():
-    """What this slice leaves out raises instead of running wrong."""
-    with pytest.raises(NotImplementedError, match="streamed prefill"):
-        EngineConfig(page_size=8, prefill_chunk_tokens=16)
+    """What the port leaves out raises instead of running wrong; what
+    this slice added (streamed prefill, swap) no longer raises."""
+    from repro_torch.core import SearchConfig
+    from repro_torch.core.serving import ReplicaServingLoop
     with pytest.raises(NotImplementedError):
         build_model(get_config("tiny-lm").__class__(
             name="moe-x", arch_type="moe", n_layers=1, d_model=32,
             n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=16), device="cpu")
+    with pytest.raises(NotImplementedError, match="replicas"):
+        ReplicaServingLoop([], SearchConfig(), [])
+    with pytest.raises(ValueError, match="at least one pool page"):
+        EngineConfig(page_size=8, prefill_chunk_tokens=4)
     cfg = dataclasses.replace(get_config("tiny-lm"), n_layers=1, d_model=64,
                               n_heads=2, n_kv_heads=1, d_ff=64,
                               vocab_size=32)
     lm = build_model(cfg, device="cpu")
     engine = PagedEngine(lm, lm.init(torch.Generator().manual_seed(0)),
                          EngineConfig(n_pages=16, page_size=8, max_batch=2,
-                                      max_seq_len=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="swap"):
-        engine.swap_out([0])
-    with pytest.raises(NotImplementedError, match="swap"):
-        engine.swap_in([0])
+                                      max_seq_len=32,
+                                      prefill_chunk_tokens=8),
+                         device="cpu")
+    sid = engine.prefill(list(range(1, 20)))
+    assert engine.n_prefill_calls == 3          # ceil(18 / 8) segments
+    assert engine.swap_out([sid]) == 3
+    assert engine.swap_in([sid]) == 3
+    engine.alloc.check_invariants()
