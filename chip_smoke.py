@@ -19,7 +19,10 @@ exits non-zero):
                zero-length and one-page rows) at several
                ``PAGED_PAGES_PER_SPLIT``, tree batches of 48 and 160
                leaves (the latter in leaf chunks), prefill at hd 128,
-               float32 and bfloat16;
+               float32 and bfloat16; prefill buckets of 1024 and 2048
+               tokens (float32, hd 64 and 128) also against float64,
+               once more with q and k scaled 3x (held to float64 only:
+               the plain version is itself near the tolerance);
   4. main    — after an untimed warm-up (one prefill, two decode
                steps per mode), ETS search (``run_search_many``) over 4
                seeded prompts at the full width of ``llama3.2-1b``
@@ -60,7 +63,23 @@ exits non-zero):
                demotion must fire and every page come back, and the
                tree kernel's largest call of the run is held against its
                plain version;
- 10. replay  — each kernel against its plain version on the largest
+ 10. train   — ``repro_torch.launch.train``'s model at ``llama3.2-1b``
+               width (float32, vocab 32) trained 6 steps (batch 32 x 64
+               tokens), then the same config with a value head through
+               ``train_prm``: step ms (CUDA events; step 0 apart), tok/s,
+               ``mfu`` against the fp32 peak, peak memory over the base,
+               losses and grad norms (finite); a bitwise checkpoint
+               round trip; one step at depth 2 on the card against the
+               same step on the CPU (loss rtol 1e-5, grad norm 1e-4).
+               Training runs no kernel of the port;
+ 11. example — ``examples/torch_train_and_search.py`` at its defaults
+               (tiny LM + PRM trained 400 steps, REBASE and ETS over 10
+               problems, paged mode, page size 8): ETS must solve 2 of
+               10 and the LM's loss fall below 0.75 x its first;
+ 12. serve   — ``repro_torch.launch.serve`` (8 Poisson requests, 100
+               train steps, tree mode, page size 8): every request
+               finishes, the pool drains;
+ 13. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
@@ -71,9 +90,13 @@ exits non-zero):
                also beside the bound of the logical bytes its rows
                stream;
 
-then the kernels line ``{"kernels": [...]}`` (``launches``: the sum
-over the paths driven with the counts zeroed just before each — the
-main sweep in both modes, streamed, swap and both serving runs —
+the example and serve phases hold the largest call of each kernel they
+ran against its plain version; every flash call on a float32 bucket of
+1024 tokens or more (parity phase, streamed and swap paths) is also held
+to the same function in float64 (``ORACLE_RATIO``).  Then the kernels
+line ``{"kernels": [...]}`` (``launches``: the sum over the paths
+driven with the counts zeroed just before each — the main sweep in both
+modes, streamed, swap, both serving runs, train, example and serve —
 ``launches_by_path`` each path's) and, last, the device line.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -81,9 +104,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +134,13 @@ TOL_BF16 = 2e-2
 # 2e-2 is near a typical output of rows this long and would not see a
 # dropped page
 RTOL_BF16_ROUNDED = 2 * 2 ** -7
+# flash prefill on long buckets (float32, LONG_BUCKET tokens and more):
+# kernel and plain version are both held to the same function in
+# float64, and the kernel may be no farther from it than the tolerance
+# and than ORACLE_RATIO times the plain version
+LONG_BUCKET = 1024
+ORACLE_RATIO = 2.0
+LONG_SCALED = 3.0       # the long buckets again, q and k scaled up
 # paged vs tree decode logits at full width: both float32, summed in
 # another order over 16 layers; logits are O(1)
 TOL_MODES = 2e-3
@@ -382,10 +415,16 @@ def paged_pages_per_split(ops, pps):
         ops.PAGED_PAGES_PER_SPLIT = default
 
 
-def check(name, dtype, out, ref, case, bf16_rounded=False):
+def check(name, dtype, out, ref, case, bf16_rounded=False, oracle=None,
+          oracle_only=False):
     """|out - ref| <= tol + rtol * |ref| elementwise: tol is the
     reference tests' (rtol 0), or for ``bf16_rounded`` the fp32 tol with
-    rtol ``RTOL_BF16_ROUNDED``."""
+    rtol ``RTOL_BF16_ROUNDED``.  With ``oracle`` (the same function in
+    float64), the kernel may also be no farther from it than ``tol`` and
+    than ``ORACLE_RATIO`` times the plain version ``ref``; with
+    ``oracle_only`` (inputs where the plain version is itself about
+    ``tol`` from the oracle) only that bar holds, and the gap to the
+    plain version is printed."""
     import torch
     if out.is_cuda:
         torch.cuda.synchronize()
@@ -398,13 +437,36 @@ def check(name, dtype, out, ref, case, bf16_rounded=False):
         else:
             tol = TOL_BF16
     finite = bool(torch.isfinite(out.float()).all())
-    emit({"phase": "parity", "kernel": name, "case": case,
-          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-          "tol": tol, "rtol": rtol, "finite": finite})
-    if not finite or not bool((diff <= tol + rtol * ref.float().abs()).all()):
+    line = {"phase": "parity", "kernel": name, "case": case,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "tol": tol, "rtol": rtol, "finite": finite}
+    if oracle is not None:
+        err64 = (out.double() - oracle).abs().max().item()
+        plain64 = (ref.double() - oracle).abs().max().item()
+        line.update(max_abs_err_f64=err64, plain_max_abs_err_f64=plain64,
+                    oracle_ratio=ORACLE_RATIO)
+    emit(line)
+    if not finite or not oracle_only and \
+            not bool((diff <= tol + rtol * ref.float().abs()).all()):
         fail(f"{name} ({case}, {dtype}) disagrees with its plain version: "
              f"max_abs_err {err}, tol {tol} + {rtol} x |ref|")
+    if oracle is not None and (err64 > tol or err64 > ORACLE_RATIO * plain64):
+        fail(f"{name} ({case}): {err64} from the float64 oracle, above "
+             f"{tol} or {ORACLE_RATIO} x the plain version's {plain64}")
     return err
+
+
+def flash_oracle(torch, args, kw):
+    """The float64 flash prefill of a call's inputs where it is held to
+    one (float32, buckets of ``LONG_BUCKET`` tokens and more), else
+    None."""
+    from repro_torch.kernels import ref
+    q = args[0]
+    if q.dtype != torch.float32 or q.shape[1] < LONG_BUCKET:
+        return None
+    return ref.flash_prefill_f64(*args, **{k: v for k, v in kw.items()
+                                           if k in ("scale", "causal",
+                                                    "window")})
 
 
 def phase_parity(torch, np):
@@ -453,6 +515,28 @@ def phase_parity(torch, np):
             check("flash_prefill", dt, ops.flash_prefill(*a, scale=scale),
                   ref.flash_prefill_ref(*a, scale=scale),
                   f"causal, S={S}, hd={hd}")
+        if dt == torch.float32:
+            # the long buckets of the streamed and swap paths, against
+            # the float64 oracle as well
+            for S, hd in ((1024, 64), (2048, 64), (1024, 128), (2048, 128)):
+                a = flash_inputs(torch, rng, dt, B=2, S=S, hd=hd)
+                sc = hd ** -0.5
+                check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
+                      ref.flash_prefill_ref(*a, scale=sc),
+                      f"causal, S={S}, hd={hd}, long bucket",
+                      oracle=ref.flash_prefill_f64(*a, scale=sc))
+                # q and k 3x: scores of std 9, peaked rows (v stays at
+                # unit scale, the scale the 2e-5 bar is set for); the
+                # plain version comes near 2e-5 of the oracle here itself
+                a = [LONG_SCALED * a[0], LONG_SCALED * a[1], a[2]]
+                check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
+                      ref.flash_prefill_ref(*a, scale=sc),
+                      f"causal, S={S}, hd={hd}, long bucket, q and k x"
+                      f"{LONG_SCALED:g}",
+                      oracle=ref.flash_prefill_f64(*a, scale=sc),
+                      oracle_only=True)
+                del a
+                torch.cuda.empty_cache()
         a = flash_inputs(torch, rng, dt, S=128)
         check("flash_prefill", dt,
               ops.flash_prefill(*a, scale=scale, window=48),
@@ -463,7 +547,10 @@ def phase_parity(torch, np):
 class Recorder:
     """Keeps a copy of the largest call each kernel wrapper received on
     the main path, for the replay phase.  Decode calls are sized only at
-    KV layer 0 (one host sync per decode step, not one per layer)."""
+    KV layer 0 (one host sync per decode step, not one per layer):
+    ``layer0_ptr`` names the running engine's pool.  Each engine built
+    while the recorder is entered sets it; a path that runs an engine
+    built before sets it by hand."""
 
     def __init__(self, ops):
         self.ops = ops
@@ -485,6 +572,15 @@ class Recorder:
         return wrapper
 
     def __enter__(self):
+        from repro_torch.serving.engine import PagedEngine
+        self.engine_init = engine_init = PagedEngine.__init__
+        recorder = self
+
+        def init(engine, *args, **kw):
+            engine_init(engine, *args, **kw)
+            recorder.layer0_ptr = engine.pool.k.data_ptr()
+
+        PagedEngine.__init__ = init
         self.ops.paged_attention = self._wrap(
             "paged_attention", lambda a: int(a[4].sum()), True)
         self.ops.tree_attention = self._wrap(
@@ -495,6 +591,8 @@ class Recorder:
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.serving.engine import PagedEngine
+        PagedEngine.__init__ = self.engine_init
         for n, f in self.orig.items():
             setattr(self.ops, n, f)
 
@@ -506,13 +604,16 @@ def check_recorded(recorder, path):
     from repro_torch.kernels import ref
     if not recorder.best:
         fail(f"{path}: no kernel call was recorded")
+    import torch
     for name, (_, args, kw) in sorted(recorder.best.items()):
         plain = getattr(ref, name + "_ref")
         check(name, args[0].dtype, recorder.orig[name](*args, **kw),
               plain(*args, **{k: v for k, v in kw.items()
                               if k in ("scale", "causal", "window")}),
               f"the {path} path's largest call, shapes "
-              f"{[list(a.shape) for a in args]}", bf16_rounded=True)
+              f"{[list(a.shape) for a in args]}", bf16_rounded=True,
+              oracle=flash_oracle(torch, args, kw)
+              if name == "flash_prefill" else None)
 
 
 def run_mode(torch, np, mode, models, prompts, recorder=None,
@@ -551,8 +652,7 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
     engine.decode = timed("decode", engine.decode)
     if recorder is not None:
         recorder.layer0_ptr = engine.pool.k.data_ptr()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    base = fresh_peak(torch)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with recorder or contextlib.nullcontext():
@@ -580,6 +680,7 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
         "unique_pages_streamed": engine.unique_pages_streamed,
         "logical_pages_streamed": engine.logical_pages_streamed,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start": base,
         "n_swap_outs": engine.n_swap_outs,
         "swapped_out_pages": engine.swapped_out_pages,
         "nodes": [len(r.tree.nodes) for r in results],
@@ -825,7 +926,8 @@ def flash_off_path(torch, timer):
         scale = hd ** -0.5
         err = check("flash_prefill", dt, ops.flash_prefill(*a, scale=scale),
                     ref.flash_prefill_ref(*a, scale=scale),
-                    f"off-path timing, B={B}, S={S}, hd={hd}")
+                    f"off-path timing, B={B}, S={S}, hd={hd}",
+                    oracle=flash_oracle(torch, a, {"scale": scale}))
         sdpa = sdpa_call(torch, *a, scale=scale)
         rows.append({"shape": [B, S, 32, 8, hd],
                      "dtype": str(dt).replace("torch.", ""),
@@ -970,6 +1072,20 @@ def event_ms(torch, dev, fn):
     return out, a.elapsed_time(b)
 
 
+def fresh_peak(torch, dev="cuda"):
+    """Free what earlier work left to the collector (engines hold
+    reference cycles), return the cached blocks and reset the peak;
+    returns the bytes still allocated, the base a peak is read over (0
+    on the CPU)."""
+    gc.collect()
+    if torch.device(dev).type != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
 def peak_reset(torch, dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1020,7 +1136,6 @@ def phase_streamed(torch, models, prompt, smi, dev="cuda"):
                               calls=engine.n_prefill_calls,
                               logits=engine.logits_trace[-1],
                               kv=seq_kv(engine, sid))
-            recorder.layer0_ptr = engine.pool.k.data_ptr()
             cont[name] = engine.decode([sid], 8, key=0,
                                        temperature=0.0)[sid]
     launches = launch_counts(ops)
@@ -1108,7 +1223,6 @@ def phase_swap(torch, models, prompt, smi, dev="cuda"):
     with recorder:
         for swap in (False, True):
             engine = PagedEngine(lm, lp, ecfg, device=dev)
-            recorder.layer0_ptr = engine.pool.k.data_ptr()
             sid = engine.prefill(prompt)
             ids = engine.branch(sid, 8)
             engine.decode(ids, 32, key=0, temperature=0.0)
@@ -1361,6 +1475,279 @@ def phase_serving(torch, models, long_prompt, smi, dev="cuda"):
     return total
 
 
+# ---------------------------------------------------------------------------
+# slice 5: training at full width, the trained example, the serve launcher
+# ---------------------------------------------------------------------------
+
+# one full-width training step at depth 2, card against the CPU
+RTOL_TRAIN_LOSS = 1e-5
+RTOL_TRAIN_GNORM = 1e-4
+TRAIN_STEPS = 6
+TRAIN_BATCH = 32
+TRAIN_SEQ = 64          # ArithmeticTask(seq_len=64), as launch.train
+# the example's bars: the reference's test_trained_e2e_ets_beats_chance
+# (2 of 10, twice chance) and test_lm_short_fit (last loss < 0.75 x first)
+EXAMPLE_MIN_CORRECT = 2
+EXAMPLE_LOSS_DROP = 0.75
+
+
+class StepLog:
+    """The train loop's ``on_step`` hook: the global grad norm AdamW
+    clipped with at each step, and the time at the end of each step
+    (CUDA events on the card, the host clock on the CPU; the first mark
+    is taken when the log is made)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.marks, self.norms = [], []
+        self._mark()
+
+    def _mark(self):
+        torch = self.torch
+        if torch.device(self.dev).type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def __call__(self, i, loss, gnorm):
+        self.norms.append(gnorm)
+        self._mark()
+
+    def step_ms(self):
+        if not isinstance(self.marks[0], float):
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b)
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def train_flops(model, params, batch, seq):
+    """Model FLOPs of one training step: 6 x params x tokens for the
+    products with the weights, plus the attention scores and sums (the
+    plain path computes all seq x seq of them), forward and backward."""
+    from repro_torch.models.model import tree_leaves
+    cfg = model.cfg
+    n = sum(p.numel() for p in tree_leaves(params))
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return 6 * n * batch * seq + 3 * attn, n
+
+
+def train_on_cpu_and_device(torch, np, dev, arch):
+    """One training step of ``arch`` at depth 2 (batch 4) on ``dev`` and
+    on the CPU from the same params and batch: the loss and the global
+    grad norm must agree (TF32 or a device-dependent op would show)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, train_lm
+    from repro_torch.training.task import VOCAB_SIZE, ArithmeticTask
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              vocab_size=max(VOCAB_SIZE, 32),
+                              dtype="float32")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    task = ArithmeticTask(n_ops=3, seq_len=TRAIN_SEQ)
+    out = {}
+    for d in (dev, "cpu"):
+        log = StepLog(torch, d)
+        trained, hist = train_lm(
+            build_model(cfg, device=d),
+            tree_map(lambda a: a.to(d), params), task,
+            TrainConfig(steps=1, batch=4, log_every=1), on_step=log)
+        out[d] = (hist[0], float(log.norms[0]), tree_leaves(trained))
+    (loss_d, norm_d, p_d), (loss_c, norm_c, p_c) = out[dev], out["cpu"]
+    row = {"device": str(dev), "loss": [loss_d, loss_c],
+           "grad_norm": [norm_d, norm_c],
+           "loss_rel_diff": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_norm_rel_diff": abs(norm_d - norm_c) / abs(norm_c),
+           "params_max_abs_diff_after_step": max(
+               float((a.cpu() - b).abs().max()) for a, b in zip(p_d, p_c)),
+           "rtol_loss": RTOL_TRAIN_LOSS, "rtol_grad_norm": RTOL_TRAIN_GNORM}
+    if row["loss_rel_diff"] > RTOL_TRAIN_LOSS or \
+            row["grad_norm_rel_diff"] > RTOL_TRAIN_GNORM:
+        fail(f"a training step on {dev} differs from the CPU's: {row}")
+    return row
+
+
+def phase_train(torch, np, smi, dev="cuda", arch="llama3.2-1b"):
+    """``repro_torch.launch.train``'s model at ``arch`` width (float32,
+    the task's 32-token vocabulary) trained for a few steps, then the
+    same config with a value head through ``train_prm``; a bitwise
+    checkpoint round trip; one step at depth 2 against the CPU.  The
+    training path runs no kernel of the port (the reference trains
+    through plain attention): its launch counts are read to show it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.training import TrainConfig, checkpoint, train_lm, \
+        train_prm
+    from repro_torch.training.task import ArithmeticTask
+    start = fresh_peak(torch, dev)
+    task = ArithmeticTask(n_ops=3, seq_len=TRAIN_SEQ)
+    ops.reset_launch_counts()
+    rows = {}
+    for name, fit, vh, seed in (("lm", train_lm, False, 0),
+                                ("prm", train_prm, True, 1)):
+        base = fresh_peak(torch, dev)
+        model, params = launch_train.model_and_params(
+            arch, with_value_head=vh, seed=seed, device=dev)
+        log = StepLog(torch, dev)
+        params, hist = fit(model, params, task, TrainConfig(
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, log_every=1),
+            on_step=log)
+        ms = log.step_ms()
+        norms = [float(n) for n in log.norms]
+        peak = peak_bytes(torch, dev)
+        flops, n_params = train_flops(model, params, TRAIN_BATCH,
+                                      TRAIN_SEQ)
+        steady = float(np.mean(ms[1:]))
+        rows[name] = {
+            "params": n_params, "losses": hist, "grad_norms": norms,
+            "step_ms": ms, "warmup_step_ms": ms[0], "mean_step_ms": steady,
+            "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+            "tok_s": TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+            "flops_per_step": flops,
+            "mfu": flops / (steady / 1e3) / PEAK_FLOPS["torch.float32"],
+            "memory_allocated_before": base, "max_memory_allocated": peak,
+            "peak_over_base_bytes": peak - base}
+        if not (np.all(np.isfinite(hist)) and np.all(np.isfinite(norms))):
+            fail(f"train {name}: non-finite loss or grad norm: {hist}, "
+                 f"{norms}")
+        if name == "lm":
+            with tempfile.TemporaryDirectory() as d:
+                path = str(Path(d) / "lm.npz")
+                _, save_s = timed_s(torch, dev,
+                                    lambda: checkpoint.save(path, params))
+                back, load_s = timed_s(torch, dev,
+                                       lambda: checkpoint.load(path, params))
+            same = all(a.device == b.device and torch.equal(a, b)
+                       for a, b in zip(tree_leaves(params),
+                                       tree_leaves(back)))
+            rows[name].update(checkpoint_bitwise=same,
+                              checkpoint_save_s=save_s,
+                              checkpoint_load_s=load_s)
+            del back
+            if not same:
+                fail("the checkpoint did not load back bitwise")
+        del model, params
+    launches = launch_counts(ops)
+    emit({"phase": "train", "nvidia_smi": smi, "arch": arch,
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "memory_allocated_at_start": start,
+          "peak_flops_fp32": PEAK_FLOPS["torch.float32"], **rows,
+          "launches": launches})
+    emit({"phase": "train_cpu_vs_card", "nvidia_smi": smi,
+          **train_on_cpu_and_device(torch, np, dev, arch)})
+    return launches
+
+
+def load_example():
+    """``examples/torch_train_and_search.py`` as a module."""
+    path = ROOT / "examples" / "torch_train_and_search.py"
+    spec = importlib.util.spec_from_file_location("torch_train_and_search",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_example(torch, smi, dev="cuda", argv=()):
+    """The train-then-search example at its defaults (``argv`` adds to
+    them) on ``dev``: tiny LM + PRM trained 400 steps each on the
+    arithmetic task, REBASE and ETS over 10 problems (width 12, paged
+    mode, page size 8, G = 2)."""
+    from repro_torch.kernels import ops
+    example = load_example()
+    base = fresh_peak(torch, dev)
+    recorder = Recorder(ops)
+    ops.reset_launch_counts()
+    with recorder:
+        (rows, info), wall = timed_s(torch, dev, lambda: example.main(
+            ["--device", str(dev), *argv]))
+    launches = launch_counts(ops)
+    peak = peak_bytes(torch, dev)
+    lm_hist = info["lm_history"]
+    for r in rows:
+        emit({"phase": "example", "nvidia_smi": smi, "method": r["method"],
+              "accuracy": r["accuracy"], "n_correct": r["n_correct"],
+              "avg_physical_pages": r["avg_physical_pages"],
+              "avg_logical_pages": r["avg_logical_pages"],
+              "sharing": r["avg_logical_pages"]
+              / max(r["avg_physical_pages"], 1e-9),
+              "wall_s": r["wall_s"]})
+    emit({"phase": "example_train", "nvidia_smi": smi,
+          "lm_loss_first": lm_hist[0], "lm_loss_last": lm_hist[-1],
+          "prm_loss_first": info["prm_history"][0],
+          "prm_loss_last": info["prm_history"][-1],
+          "train_s": info["train_s"], "wall_s": wall,
+          "memory_allocated_at_start": base, "max_memory_allocated": peak,
+          "launches": launches})
+    ets = next(r for r in rows if r["method"] == "ets")
+    if ets["n_correct"] < EXAMPLE_MIN_CORRECT:
+        fail(f"example: ETS solved {ets['n_correct']} problems, below "
+             f"{EXAMPLE_MIN_CORRECT}")
+    if not lm_hist[-1] < EXAMPLE_LOSS_DROP * lm_hist[0]:
+        fail(f"example: LM loss {lm_hist[0]} -> {lm_hist[-1]}, not below "
+             f"{EXAMPLE_LOSS_DROP} x the first")
+    if not (launches["paged_attention"] and launches["flash_prefill"]):
+        fail(f"example: a kernel of the path did not launch: {launches}")
+    check_recorded(recorder, "example")
+    return launches
+
+
+def phase_serve(torch, smi, dev="cuda", argv=()):
+    """``repro_torch.launch.serve``'s main path on ``dev``: a tiny LM +
+    PRM trained 100 steps, 8 Poisson requests served in tree mode (page
+    size 8, G = 2); ``argv`` adds to the arguments."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    base = fresh_peak(torch, dev)
+    recorder = Recorder(ops)
+    ops.reset_launch_counts()
+    loop_s = []
+    orig_run = serve.ServingLoop.run
+
+    def timed_run(loop):
+        out, secs = timed_s(torch, dev, lambda: orig_run(loop))
+        loop_s.append(secs)
+        return out
+
+    serve.ServingLoop.run = timed_run
+    try:
+        with recorder:
+            out, wall = timed_s(torch, dev, lambda: serve.main(
+                ["--requests", "8", "--train-steps", "100", "--device",
+                 str(dev), *argv]))
+    finally:
+        serve.ServingLoop.run = orig_run
+    launches = launch_counts(ops)
+    engine = out["backend"].engine
+    rep, results, answers = out["report"], out["results"], out["answers"]
+    acc = sum(int(r.answer == a) for r, a in zip(results, answers)) \
+        / len(answers)
+    emit({"phase": "serve", "nvidia_smi": smi, "requests": len(answers),
+          "slo": rep, "accuracy": acc, "wall_s": wall,
+          "serve_wall_s": loop_s[0],
+          "decoded_tokens": engine.n_decoded_tokens,
+          "decode_steps": engine.n_decode_steps,
+          "unique_pages_streamed": engine.unique_pages_streamed,
+          "logical_pages_streamed": engine.logical_pages_streamed,
+          "memory_allocated_at_start": base,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "launches": launches})
+    if len(results) != 8 or rep["n_finished"] != 8:
+        fail(f"serve: {rep['n_finished']} of 8 requests finished")
+    if engine.alloc.used_pages or engine.alloc.swapped_pages:
+        fail(f"serve: {engine.alloc.used_pages} pages held and "
+             f"{engine.alloc.swapped_pages} parked at the end")
+    engine.alloc.check_invariants()
+    if not (launches["tree_attention"] and launches["flash_prefill"]):
+        fail(f"serve: a kernel of the path did not launch: {launches}")
+    check_recorded(recorder, "serve")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1382,6 +1769,11 @@ def main() -> int:
     by_path["streamed"] = phase_streamed(torch, models, long_prompt, smi)
     by_path["swap"] = phase_swap(torch, models, swap_prompt, smi)
     by_path["serving"] = phase_serving(torch, models, long_prompt, smi)
+    # the full-width models of the phases above are not needed again
+    del models, prompts
+    by_path["train"] = phase_train(torch, np, smi)
+    by_path["example"] = phase_example(torch, smi)
+    by_path["serve"] = phase_serve(torch, smi)
     from repro_torch.kernels import ops
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in ops.KERNELS}

@@ -1,4 +1,4 @@
-"""Reference params -> port params.
+"""Reference params -> port params, and back.
 
 ``params_from_jax`` takes the reference ``LM.init`` pytree with every
 leaf already a numpy array (the caller converts, e.g. with
@@ -6,6 +6,8 @@ leaf already a numpy array (the caller converts, e.g. with
 and copies it into tensors on ``device``.  The port keeps the reference
 layout (``x @ w`` with ``w`` shaped ``(d_in, d_out)``, per-group layer
 stacks under ``groups[gi]``), so the bridge is a plain copy.
+``params_to_numpy`` is its inverse, for any port tree (trained params,
+AdamW state).
 """
 from __future__ import annotations
 
@@ -42,3 +44,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device=None
                          f"tie_embeddings={cfg.tie_embeddings}")
     return tree_map(lambda a: torch.tensor(np.array(a), device=dev),
                     dict(np_params))
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A port tree (nested dicts/lists of tensors) as the same tree of
+    numpy arrays in the reference layout, on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

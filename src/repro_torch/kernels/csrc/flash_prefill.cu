@@ -36,7 +36,13 @@
 // the reference's 2e-5 tolerance, so each product is split 3xTF32:
 // a = big + small with big = tf32(a), small = tf32(a - big), and
 // a.b ~ big.big + big.small + small.big with fp32 accumulation (the
-// dropped small.small term is ~2^-22 relative).  At hd <= 64 the split Q
+// dropped small.small term is ~2^-22 relative).  Accumulating in the
+// tensor cores' fp32 accumulator over a whole key row (768 products into
+// O at S = 2048) left the kernel farther from a float64 oracle than
+// the plain fp32 version on 1024- and 2048-token buckets (PERF.md, P1).  So each k-step's three products go into a zeroed
+// fragment, which is added to the running S or O with an ordinary
+// round-to-nearest fp32 add: no chain inside the tensor cores is longer
+// than three products.  At hd <= 64 the split Q
 // fragments are made once and stay in registers; at hd 96 and 128 they
 // would spill, so Q is read from shared memory and split at each
 // k-step.  bf16 inputs: bf16 MMA with fp32 accumulation, P rounded to
@@ -85,6 +91,12 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const float (&a)[4],
   mma_tf32(c, as, bb);
   mma_tf32(c, ab, bs);
   mma_tf32(c, ab, bb);
+}
+
+// acc += c in round-to-nearest fp32 (the partial sums of one k-step)
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&c)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += c[i];
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -204,16 +216,18 @@ __global__ void __launch_bounds__(FP_WARPS * 32) flash_prefill_kernel(
           const float* kb = reinterpret_cast<const float*>(ks) +
                             (j * 8 + gid) * LD + kk * 8 + tig;
           const float bf[2] = {kb[0], kb[4]};
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
           if constexpr (QREG) {
             unsigned bb[2], bs[2];
             split_tf32(bf[0], bb[0], bs[0]);
             split_tf32(bf[1], bb[1], bs[1]);
-            mma_tf32(s[j], qsm[kk], bb);
-            mma_tf32(s[j], qb[kk], bs);
-            mma_tf32(s[j], qb[kk], bb);
+            mma_tf32(c, qsm[kk], bb);
+            mma_tf32(c, qb[kk], bs);
+            mma_tf32(c, qb[kk], bb);
           } else {
-            mma_3xtf32(s[j], a, bf);
+            mma_3xtf32(c, a, bf);
           }
+          add4(s[j], c);
         }
       }
     } else {
@@ -304,7 +318,9 @@ __global__ void __launch_bounds__(FP_WARPS * 32) flash_prefill_kernel(
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n) {
           const float bf[2] = {vb[n * 8], vb[n * 8 + LD]};
-          mma_3xtf32(o[n], a, bf);
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(c, a, bf);
+          add4(o[n], c);
         }
       }
     } else {

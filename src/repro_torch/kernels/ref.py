@@ -104,13 +104,25 @@ def tree_attention_split_ref(q, k_pool, v_pool, page_list, page_mask,
 def flash_prefill_ref(q, k, v, *, scale: float, causal: bool = True,
                       window: int = 0) -> torch.Tensor:
     """Oracle for the prefill kernel.  q/k/v (B, S, H|K, hd); causal
-    (optionally windowed) attention over the whole bucket."""
+    (optionally windowed) attention over the whole bucket, in float32."""
+    return _flash(q, k, v, scale, causal, window, torch.float32)
+
+
+def flash_prefill_f64(q, k, v, *, scale: float, causal: bool = True,
+                      window: int = 0) -> torch.Tensor:
+    """The same function computed in float64 from the same inputs: the
+    yardstick both the kernel and ``flash_prefill_ref`` are held to on
+    long buckets.  Returns float64."""
+    return _flash(q, k, v, scale, causal, window, torch.float64)
+
+
+def _flash(q, k, v, scale, causal, window, dt) -> torch.Tensor:
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     dev = q.device
-    qg = q.reshape(B, S, K, G, hd).float()
-    s = torch.einsum("bskgh,bckh->bkgsc", qg, k.float()) * scale
+    qg = q.reshape(B, S, K, G, hd).to(dt)
+    s = torch.einsum("bskgh,bckh->bkgsc", qg, k.to(dt)) * scale
     qpos = torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=dev)
@@ -118,7 +130,8 @@ def flash_prefill_ref(q, k, v, *, scale: float, causal: bool = True,
         mask = mask & (kpos <= qpos)
     if window:
         mask = mask & (kpos > qpos - window)
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=dev))
+    s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=dt, device=dev))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgsc,bckh->bskgh", p, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = torch.einsum("bkgsc,bckh->bskgh", p, v.to(dt))
+    out = out.reshape(B, S, H, hd)
+    return out.to(q.dtype) if dt == torch.float32 else out

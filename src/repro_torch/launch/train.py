@@ -1,0 +1,74 @@
+"""Training launcher (port of ``repro.launch.train``, local mode).
+
+Trains ``--arch`` (or its reduced variant with ``--tiny``) as a float32
+model over the arithmetic task's vocabulary, on the CUDA device unless
+``--device`` names another, and optionally writes a checkpoint:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-lm \\
+        --steps 100 --ckpt /tmp/lm.npz
+
+``--dry-run`` (lowering the distributed step on a production mesh) is
+not ported: meshes are ``ROADMAP.md`` queue 1 item 6.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from ..configs import get_config, tiny_variant
+from ..models.model import build_model
+from ..training import TrainConfig, checkpoint, train_lm
+from ..training.task import VOCAB_SIZE, ArithmeticTask
+
+
+def model_and_params(arch: str, *, tiny: bool = False, device=None,
+                     seed: int = 0, with_value_head: bool = False):
+    """The launcher's model: ``arch`` (reduced with ``tiny``), float32,
+    vocabulary ``max(VOCAB_SIZE, 32)``, params from a generator seeded
+    ``seed`` on the model's device."""
+    cfg = get_config(arch)
+    if tiny:
+        cfg = tiny_variant(cfg)
+    cfg = dataclasses.replace(cfg, vocab_size=max(VOCAB_SIZE, 32),
+                              dtype="float32")
+    model = build_model(cfg, with_value_head=with_value_head, device=device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model, model.init(gen)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tiny-lm")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--tiny", action="store_true",
+                    help="train the reduced variant of --arch")
+    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Returns ``(model, params, loss history)``."""
+    args = parse_args(argv)
+    if args.dry_run:
+        raise NotImplementedError(
+            "--dry-run lowers the train step on a production mesh: not "
+            "ported (ROADMAP.md queue 1 item 6, meshes)")
+    model, params = model_and_params(args.arch, tiny=args.tiny,
+                                     device=args.device)
+    task = ArithmeticTask(n_ops=3, seq_len=64)
+    params, hist = train_lm(model, params, task,
+                            TrainConfig(steps=args.steps, batch=args.batch))
+    if args.ckpt:
+        checkpoint.save(args.ckpt, params)
+        print(f"saved {args.ckpt}")
+    return model, params, hist
+
+
+if __name__ == "__main__":
+    main()

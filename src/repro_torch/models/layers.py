@@ -1,4 +1,5 @@
-"""Core layers: norms, RoPE, MLPs, inits (port of ``repro.models.layers``).
+"""Core layers: norms, RoPE, MLPs, inits, cross-entropy (port of
+``repro.models.layers``).
 
 Plain functions on tensors; params are nested dicts of tensors in the
 reference layout (``x @ w`` with ``w`` shaped ``(d_in, d_out)``).  Every
@@ -102,3 +103,21 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
     return matmul(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask=None) -> torch.Tensor:
+    """Mean CE over valid tokens.  logits (..., V) any float dtype,
+    reduced in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -7,6 +7,7 @@ is a plain copy.
 
   * ``init(generator)``            — parameter init (fp32 master params)
   * ``forward(params, batch)``     — full-sequence logits
+  * ``loss(params, batch)``        — next-token CE (training)
   * ``hidden(params, batch)``      — final-layer normed hidden states
   * ``reward(params, batch)``      — PRM scalar head (with_value_head)
   * ``embed_inputs`` / ``logits``  — the pieces the paged engine composes
@@ -15,6 +16,10 @@ dtype flow follows the reference op by op: master params are fp32,
 ``forward``/``hidden``/``reward`` cast them to the compute type
 ``cfg.dtype`` first, and ``embed_inputs``/``logits`` cast the embedding
 to the compute type where they read it.
+
+``forward``, ``loss``, ``hidden`` and ``reward`` record autograd where
+the params require grad (training); the serving callers run them under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 from ..device import resolve_device
 from . import attention as A
 from .layers import dense_init, embed_init, matmul, mlp_apply, mlp_init, \
-    rms_norm
+    rms_norm, softmax_cross_entropy
 
 Params = Dict[str, Any]
 
@@ -37,6 +42,15 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a nested dict/list, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def layer_slice(group: Params, l: int) -> Params:
@@ -157,7 +171,6 @@ class LM:
     # ------------------------------------------------------------------
     # Public
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, p: Params, batch: Dict[str, Any]):
         """Full-sequence logits (B,S,V) and the (zero) MoE aux loss."""
         p = self.cast_params(p)
@@ -165,7 +178,18 @@ class LM:
         x = self._run_full(p, x, positions)
         return self.logits(p, x), 0.0
 
-    @torch.no_grad()
+    def loss(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
+        """Next-token CE over ``batch["labels"]`` (masked by
+        ``loss_mask``), plus the load-balance term (0 for dense)."""
+        logits, aux = self.forward(p, batch)
+        labels = batch["labels"]
+        # align: logits for positions covering the label span (suffix)
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
+        ce = softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
+        lb = self.cfg.moe.load_balance_coef if self.cfg.moe else 0.0
+        return ce + lb * aux
+
     def hidden(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Final-layer hidden states (B, S, d) — embedder API."""
         p = self.cast_params(p)
@@ -173,7 +197,6 @@ class LM:
         x = self._run_full(p, x, positions)
         return rms_norm(p["ln_f"], x, self.cfg.norm_eps)
 
-    @torch.no_grad()
     def reward(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """PRM: per-position scalar scores (B, S), float32."""
         if not self.with_value_head:

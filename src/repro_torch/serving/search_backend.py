@@ -256,6 +256,7 @@ class LMBackend:
                     row_keys=row_keys[i:i + mb]))
         return [self.expand_finish(t, outs) for t in tickets]
 
+    @torch.no_grad()
     def score(self, tree: SearchTree, node: int) -> float:
         sid = tree.node(node).payload["seq_id"]
         toks = self._put([self.engine.tokens[sid]])
@@ -266,6 +267,7 @@ class LMBackend:
                    nodes: Sequence[int]) -> List[float]:
         return self.score_multi([(tree, nodes)])[0]
 
+    @torch.no_grad()
     def score_multi(self, reqs: Sequence[Tuple[SearchTree, Sequence[int]]]
                     ) -> List[List[float]]:
         """ONE padded-bucket PRM call covering every problem's
@@ -283,6 +285,7 @@ class LMBackend:
         r = r.cpu().numpy()[np.arange(len(seqs)), idx[:len(seqs)]]
         return _split_counts([float(x) for x in r], counts)
 
+    @torch.no_grad()
     def embed(self, tree: SearchTree, node: int) -> np.ndarray:
         step = tree.node(node).payload["tokens"]
         if not step:
@@ -295,6 +298,7 @@ class LMBackend:
                    nodes: Sequence[int]) -> np.ndarray:
         return self.embed_multi([(tree, nodes)])[0]
 
+    @torch.no_grad()
     def embed_multi(self, reqs: Sequence[Tuple[SearchTree, Sequence[int]]]
                     ) -> List[np.ndarray]:
         """ONE bucketed encoder call covering every problem's nodes;

@@ -32,7 +32,15 @@ SUBMODULES = [
     "repro_torch.models.model", "repro_torch.serving",
     "repro_torch.serving.engine", "repro_torch.serving.runtimes",
     "repro_torch.serving.sampler", "repro_torch.serving.search_backend",
+    "repro_torch.core.synthetic", "repro_torch.core.costsim",
+    "repro_torch.training", "repro_torch.training.task",
+    "repro_torch.training.optimizer", "repro_torch.training.train",
+    "repro_torch.training.checkpoint", "repro_torch.launch",
+    "repro_torch.launch.train", "repro_torch.launch.serve",
+    "repro_torch.eval", "repro_torch.eval.harness",
 ]
+# files outside the package that import only the port
+SCRIPTS = ["examples/torch_train_and_search.py"]
 
 
 def test_port_imports_without_jax_or_reference():
@@ -47,6 +55,11 @@ def test_port_imports_without_jax_or_reference():
         builtins.__import__ = guard
         for m in {SUBMODULES!r}:
             importlib.import_module(m)
+        import importlib.util
+        for i, path in enumerate({[str(ROOT / f) for f in SCRIPTS]!r}):
+            spec = importlib.util.spec_from_file_location(f"script{{i}}",
+                                                          path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
