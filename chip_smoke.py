@@ -19,16 +19,20 @@ exits non-zero):
                zero-length and one-page rows) at several
                ``PAGED_PAGES_PER_SPLIT``, tree batches of 48 and 160
                leaves (the latter in leaf chunks), prefill at hd 128,
-               float32 and bfloat16; prefill buckets of 1024 and 2048
-               tokens (float32, hd 64 and 128) also against float64,
+               float32 and bfloat16; all three at zamba2-7b's head shape
+               (hd 112, G 1), flash also with a 64-token window and on
+               a 1024-token float32 bucket against float64; prefill
+               buckets of 1024 and 2048 tokens (float32, hd 64 and 128)
+               also against float64,
                once more with q and k scaled 3x (held to float64 only:
                the plain version is itself near the tolerance);
   4. main    — after an untimed warm-up (one prefill, two decode
                steps per mode), ETS search (``run_search_many``) over 4
                seeded prompts at the full width of ``llama3.2-1b``
                (random weights from a seed), LM + PRM + embedder, once
-               with paged and once with tree attention.  Launch counters are zeroed just before
-               each mode and read just after; every kernel must have
+               with paged and once with tree attention.  Launch
+               counters are zeroed just before each mode and read just
+               after; every kernel must have
                launched.  The two modes' per-step decode logits must
                agree, every page must be free at the end;
   5. sampling — the threefry known answers on the card (key, split,
@@ -79,7 +83,19 @@ exits non-zero):
  12. serve   — ``repro_torch.launch.serve`` (8 Poisson requests, 100
                train steps, tree mode, page size 8): every request
                finishes, the pool drains;
- 13. replay  — each kernel against its plain version on the largest
+ 13. families — zamba2-7b at full width and depth (81 layers, hd 112,
+               G 1; PRM the same config at 6 layers), then
+               deepseek-moe-16b (4 of 28 layers), mamba2-370m and
+               rwkv6-7b (4 of 32) at full width, each freed before the
+               next: a greedy ETS sweep (4 prompts, width 8, 3 steps) in
+               paged and, where the model has attention, tree mode; the
+               trees must be equal (rewards within 1e-5) and every
+               kernel of the path launch (none for the SSMs); tok/s,
+               pages, the state pool's MiB and peak pages, peak memory
+               over the phase's base; for zamba2 a swap round whose KV
+               and state pages come back bitwise; each path's largest
+               kernel calls held against their plain versions;
+ 14. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
@@ -96,7 +112,8 @@ ran against its plain version; every flash call on a float32 bucket of
 to the same function in float64 (``ORACLE_RATIO``).  Then the kernels
 line ``{"kernels": [...]}`` (``launches``: the sum over the paths
 driven with the counts zeroed just before each — the main sweep in both
-modes, streamed, swap, both serving runs, train, example and serve —
+modes, streamed, swap, both serving runs, train, example, serve and
+each family's sweeps and swap round —
 ``launches_by_path`` each path's) and, last, the device line.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -542,6 +559,41 @@ def phase_parity(torch, np):
               ops.flash_prefill(*a, scale=scale, window=48),
               ref.flash_prefill_ref(*a, scale=scale, window=48),
               "causal, window 48, S=128")
+        phase_parity_zamba2(torch, np, rng, dt)
+
+
+def phase_parity_zamba2(torch, np, rng, dt):
+    """The three kernels at zamba2-7b's head shape: H = K = 32 (G = 1),
+    hd 112; flash also with a 64-token window, and a float32 bucket of
+    1024 tokens against float64."""
+    from repro_torch.kernels import ops, ref
+    hd = 112
+    sc = hd ** -0.5
+    head = dict(H=32, K=32, hd=hd)
+    a = paged_inputs(torch, np, rng, dt, **head)
+    check("paged_attention", dt, ops.paged_attention(*a, scale=sc),
+          ref.paged_attention_ref(*a, scale=sc),
+          "hd 112, G 1, ragged, -1 padded, one zero-length row",
+          bf16_rounded=True)
+    a = tree_inputs(torch, np, rng, dt, B=48, problems=6, **head)
+    check("tree_attention", dt, ops.tree_attention(*a, scale=sc),
+          ref.tree_attention_ref(*a, scale=sc),
+          "hd 112, G 1, B=48, shared prefixes, dump entries",
+          bf16_rounded=True)
+    for S, window in ((256, 0), (256, 64)):
+        a = flash_inputs(torch, rng, dt, B=2, S=S, **head)
+        check("flash_prefill", dt,
+              ops.flash_prefill(*a, scale=sc, window=window),
+              ref.flash_prefill_ref(*a, scale=sc, window=window),
+              f"hd 112, G 1, causal, S={S}, window {window}")
+    if dt == torch.float32:
+        a = flash_inputs(torch, rng, dt, B=2, S=LONG_BUCKET, **head)
+        check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
+              ref.flash_prefill_ref(*a, scale=sc),
+              f"hd 112, G 1, causal, S={LONG_BUCKET}, long bucket",
+              oracle=ref.flash_prefill_f64(*a, scale=sc))
+        del a
+        torch.cuda.empty_cache()
 
 
 class Recorder:
@@ -617,22 +669,27 @@ def check_recorded(recorder, path):
 
 
 def run_mode(torch, np, mode, models, prompts, recorder=None,
-             temperature=0.0, max_steps=3, phase="main"):
+             temperature=0.0, max_steps=3, phase="main", ecfg_over=None,
+             bcfg_over=None, info_over=None, dev="cuda"):
     """One ETS sweep over ``prompts`` in attention ``mode``; greedy runs
     keep every decode step's logits (``engine.logits_trace``), and
-    ``recorder`` (if given) keeps the largest call of each kernel."""
+    ``recorder`` (if given) keeps the largest call of each kernel.
+    ``ecfg_over`` / ``bcfg_over`` override the engine / backend configs
+    (another model's tokens, the state pool's size), ``info_over`` adds
+    keys to the printed line."""
     from repro_torch.core import ETSConfig, SearchConfig, run_search_many
     from repro_torch.kernels import ops
     from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
                                      PagedEngine)
     (lm, lp), (prm, pp), (emb, ep) = models
-    engine = PagedEngine(lm, lp, EngineConfig(
-        n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
-        attention=mode, trace_logits=temperature <= 0))
-    backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(
-        step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
-        max_step_tokens=32, max_depth=8, temperature=temperature),
-        answer_fn=lambda toks: None)
+    engine = PagedEngine(lm, lp, EngineConfig(**dict(
+        dict(n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
+             attention=mode, trace_logits=temperature <= 0),
+        **(ecfg_over or {}))), device=dev)
+    backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(**dict(
+        dict(step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
+             max_step_tokens=32, max_depth=8, temperature=temperature),
+        **(bcfg_over or {}))), answer_fn=lambda toks: None, device=dev)
     scfg = SearchConfig(method="ets", width=8, max_steps=max_steps,
                         ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
                                       cluster_threshold=0.2))
@@ -640,11 +697,8 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
 
     def timed(key, fn):
         def inner(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            times[key] += time.perf_counter() - t0
+            out, secs = timed_s(torch, dev, lambda: fn(*a, **kw))
+            times[key] += secs
             return out
         return inner
 
@@ -652,14 +706,14 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
     engine.decode = timed("decode", engine.decode)
     if recorder is not None:
         recorder.layer0_ptr = engine.pool.k.data_ptr()
-    base = fresh_peak(torch)
+    base = fresh_peak(torch, dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with recorder or contextlib.nullcontext():
         results = run_search_many(backend, scfg, prompts)
-    torch.cuda.synchronize()
+    sync(torch, dev)
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
+    launches = launch_counts(ops)
     engine.alloc.check_invariants()
     if engine.alloc.used_pages != 0 or engine.alloc.seqs:
         fail(f"{mode}: {engine.alloc.used_pages} pages still held after "
@@ -679,12 +733,21 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
         "decode_tok_s": engine.n_decoded_tokens / max(times["decode"], 1e-9),
         "unique_pages_streamed": engine.unique_pages_streamed,
         "logical_pages_streamed": engine.logical_pages_streamed,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": peak_bytes(torch, dev),
         "memory_allocated_at_start": base,
         "n_swap_outs": engine.n_swap_outs,
         "swapped_out_pages": engine.swapped_out_pages,
         "nodes": [len(r.tree.nodes) for r in results],
+        **(info_over or {}),
     }
+    if engine.state is not None:
+        st = engine.state
+        info.update(state_pages=st.n_pages, state_page_mib=st.page_bytes
+                    / 2 ** 20, state_pool_mib=st.n_pages * st.page_bytes
+                    / 2 ** 20, state_peak_pages=st.peak_used,
+                    state_pages_in_use_at_end=st.used_pages)
+        if st.used_pages or engine.state_of:
+            fail(f"{phase} {mode}: {st.used_pages} state pages still held")
     emit(info)
     if engine.n_swap_outs or engine.swapped_out_pages:
         fail(f"{phase} {mode}: the roomy pool demoted a problem: "
@@ -839,26 +902,49 @@ def compare_modes(np, res_p, trace_p, res_t, trace_t):
         fail(f"paged and tree decode disagree: {worst} over {n_cmp} steps")
 
 
+PLAIN = {"paged_attention": "paged_attention_ref",
+         "tree_attention": "tree_attention_ref",
+         "flash_prefill": "flash_prefill_ref"}
+WORK = {"paged_attention": paged_work, "tree_attention": tree_work,
+        "flash_prefill": flash_work}
+
+
+def replay_call(torch, name, args, kw, fn, timer, case):
+    """One recorded call of kernel ``name`` (wrapper ``fn``) held against
+    its plain version and timed: kernel ``ms`` / ``device_ms``, the
+    plain version's ``plain_ms``, the bound of its bytes and FLOPs, and
+    for prefill one SDPA call (``library_ms``)."""
+    from repro_torch.kernels import ref
+    plain = getattr(ref, PLAIN[name])
+    pkw = {k: v for k, v in kw.items() if k in ("scale", "causal", "window")}
+    err = check(name, args[0].dtype, fn(*args, **kw), plain(*args, **pkw),
+                case)
+    out = {"max_abs_err": err,
+           "ms": timer.ms(lambda: fn(*args, **kw)),
+           "device_ms": timer.device_ms(lambda: fn(*args, **kw)),
+           "plain_ms": timer.ms(lambda: plain(*args, **pkw)),
+           "library_ms": None}
+    if name == "flash_prefill":
+        sdpa = sdpa_call(torch, *args, scale=kw["scale"])
+        out["library_ms"] = timer.ms(sdpa)
+        out["library_device_ms"] = timer.device_ms(sdpa)
+    nbytes, flops = WORK[name](args, kw["scale"])
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops,
+                                                args[0].dtype)
+    out.update(bytes=nbytes, flops=flops)
+    return out
+
+
 def phase_replay(torch, recorder, launches, timer):
-    from repro_torch.kernels import ops, ref
-    plain = {"paged_attention": ref.paged_attention_ref,
-             "tree_attention": ref.tree_attention_ref,
-             "flash_prefill": ref.flash_prefill_ref}
-    work = {"paged_attention": paged_work, "tree_attention": tree_work,
-            "flash_prefill": flash_work}
+    from repro_torch.kernels import ops
     lines = []
     for k in ops.KERNELS:
         if k.name not in recorder.best:
             fail(f"{k.name} never ran on the main path")
         _, args, kw = recorder.best[k.name]
         fn = recorder.orig[k.name]
-        out = fn(*args, **kw)
-        want = plain[k.name](*args, scale=kw["scale"])
-        err = check(k.name, args[0].dtype, out, want, "main-path inputs")
-        kernel_ms = timer.ms(lambda: fn(*args, **kw))
-        device_ms = timer.device_ms(lambda: fn(*args, **kw))
-        plain_ms = timer.ms(lambda: plain[k.name](*args, scale=kw["scale"]))
-        library_ms = None
+        r = replay_call(torch, k.name, args, kw, fn, timer,
+                        "main-path inputs")
         extra = {}
         if k.name == "paged_attention":
             # as for the tree kernel below, over block-table entries
@@ -882,23 +968,17 @@ def phase_replay(torch, recorder, launches, timer):
                     kw, pages_per_split=pps)))
                 for pps in (1, 2, 4, 8, 16, 32)}
         if k.name == "flash_prefill":
-            sdpa = sdpa_call(torch, *args, scale=kw["scale"])
-            library_ms = timer.ms(sdpa)
-            extra["library_device_ms"] = timer.device_ms(sdpa)
             extra["off_path"] = flash_off_path(torch, timer)
-        nbytes, flops = work[k.name](args, kw["scale"])
-        b_ms, b_by = bound_ms(nbytes, flops, args[0].dtype)
         shapes = [list(a.shape) for a in args]
         emit({"phase": "replay", "kernel": k.name, "shapes": shapes,
-              "dtype": str(args[0].dtype), "bytes": nbytes, "flops": flops,
-              "ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": b_ms, **extra})
+              "dtype": str(args[0].dtype), **r, **extra})
         lines.append({"name": k.name, "route": "cuda", "source": k.source,
                       "replaces": k.replaces, "launches": launches[k.name],
-                      "max_abs_err": err, "ms": kernel_ms,
-                      "device_ms": device_ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": library_ms})
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "device_ms": r["device_ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]})
     return lines
 
 
@@ -1748,6 +1828,243 @@ def phase_serve(torch, smi, dev="cuda", argv=()):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# (arch, layers run (None = all), PRM layers, why the depth is cut).
+# zamba2-7b runs at full width and depth; the PRM is the same config cut
+# to 6 layers (one hybrid super-layer) plus the value head.
+FAMILY_RUNS = (
+    ("zamba2-7b", None, 6, None),
+    ("deepseek-moe-16b", 4, 2,
+     "memory: its 28 layers are 67.5 GB in float32 masters"),
+    ("mamba2-370m", None, 2, None),
+    ("rwkv6-7b", 4, 2,
+     "time: 32 layers run the same code as 4, at 8x the smoke's time"),
+)
+# one state page holds every recurrent layer's state (zamba2-7b: 148.5
+# MiB), so the state pool is sized far below the KV pool's 1024 pages:
+# 4 problems x (8 leaves + their 8 children) fit (64 pages at the peak)
+FAMILY_STATE_PAGES = 96
+FAMILY_STEP_TOKEN = 13
+FAMILY_EOS_TOKEN = 2
+TOL_FAMILY_REWARD = 1e-5
+
+
+def family_models(torch, arch, n_layers, prm_layers, dev, shrink=None):
+    """(LM, PRM, embedder) of ``arch`` with random weights from seeds:
+    the LM at ``n_layers`` (None = all), the PRM at ``prm_layers`` with
+    a value head, ``tiny-embedder`` at the family's vocab.  ``shrink``
+    (a config -> config map) cuts width too, for a rehearsal on the CPU.
+    The PRM's float32 masters are dropped once cast (``LMBackend``
+    keeps only its compute-type copy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    full = get_config(arch)
+    shrink = shrink or (lambda c: c)
+    cfg = shrink(dataclasses.replace(full, n_layers=n_layers or
+                                     full.n_layers))
+    prm_cfg = shrink(dataclasses.replace(full, n_layers=prm_layers))
+    emb_cfg = dataclasses.replace(get_config("tiny-embedder"),
+                                  vocab_size=cfg.vocab_size)
+    models = []
+    for i, (c, vh) in enumerate([(cfg, False), (prm_cfg, True),
+                                 (emb_cfg, False)]):
+        m = build_model(c, with_value_head=vh, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        p = m.init(gen)
+        if vh:
+            p = m.cast_params(p)        # the fp32 masters go here
+        models.append((m, p))
+    return models
+
+
+def param_count(tree):
+    from repro_torch.models.model import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def same_trees(res_a, res_b):
+    """(equal tree structure and tokens, max relative reward gap)."""
+    same, worst = True, 0.0
+    for a, b in zip(res_a, res_b):
+        va = [(n.parent, n.depth, n.n_tokens, n.finished,
+               (n.payload or {}).get("tokens")) for n in a.tree.nodes]
+        vb = [(n.parent, n.depth, n.n_tokens, n.finished,
+               (n.payload or {}).get("tokens")) for n in b.tree.nodes]
+        same = same and va == vb and len(res_a) == len(res_b)
+        if va == vb:
+            ra, rb = (np.array([np.nan if n.reward is None else n.reward
+                                for n in r.tree.nodes], np.float64)
+                      for r in (a, b))
+            ok = np.isfinite(ra) & np.isfinite(rb)
+            if ok.any():
+                worst = max(worst, float((np.abs(ra - rb)[ok] / np.maximum(
+                    np.abs(ra[ok]), 1e-30)).max()))
+    return same, worst
+
+
+def state_page(engine, sid):
+    pg = engine.state_of[sid]
+    return {n: a[:, pg].clone() for n, a in engine.state.arrays.items()}
+
+
+def family_swap_round(torch, models, prompt, smi, dev):
+    """One live problem (a prompt, 4 branches, 16 tokens each) swapped
+    out, both pools dirtied by a filler (its prefill reuses the freed KV
+    pages and a freed state page), swapped back in: every KV page and
+    every state page must come back bitwise, and decode resumes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, PagedEngine
+    (lm, lp), _, _ = models
+    engine = PagedEngine(lm, lp, EngineConfig(
+        n_pages=256, page_size=16, max_batch=8, max_seq_len=512,
+        attention="paged", n_state_pages=8), device=dev)
+    recorder = Recorder(ops)
+    ops.reset_launch_counts()
+    with recorder:
+        recorder.layer0_ptr = engine.pool.k.data_ptr()
+        sid = engine.prefill(prompt)
+        ids = [sid] + engine.branch(sid, 4)
+        engine.decode(ids[1:], 16, key=0, temperature=0.0)
+        kv = {s: seq_kv(engine, s) for s in ids}
+        st = {s: state_page(engine, s) for s in ids}
+        n, out_ms = event_ms(torch, dev, lambda: engine.swap_out(ids))
+        ns = engine.alloc.seqs[sid].ns
+        (_, sgather), = engine._state_spill[ns]
+        filler = engine.prefill(prompt[::-1])
+        engine.decode([filler], 2, key=0, temperature=0.0)
+        _, resolve_ms = event_ms(torch, dev, sgather.resolve)
+        got, in_ms = event_ms(torch, dev, lambda: engine.swap_in(ids))
+        engine.free(filler)
+        kv_ok = all(torch.equal(a, b) for s in ids
+                    for x, y in zip(kv[s], seq_kv(engine, s))
+                    for a, b in zip(x, y))
+        st_ok = all(torch.equal(st[s][k], v) for s in ids
+                    for k, v in state_page(engine, s).items())
+        nxt = engine.decode(ids[1:], 8, key=0, temperature=0.0)
+    launches = launch_counts(ops)
+    page_mib = engine.state.page_bytes / 2 ** 20
+    emit({"phase": "families_swap", "arch": lm.cfg.name, "nvidia_smi": smi,
+          "kv_pages": n, "state_pages": len(ids),
+          "kv_mib": 2 * engine.pool.k[:, :n].numel()
+          * engine.pool.k.element_size() / 2 ** 20,
+          "state_mib": len(ids) * page_mib, "swap_out_ms": out_ms,
+          "state_resolve_ms": resolve_ms,
+          "state_d2h_copy_ms": sgather.copy_ms(), "swap_in_ms": in_ms,
+          "kv_bitwise": kv_ok, "state_bitwise": st_ok,
+          "pinned": all(t.is_pinned() for t in sgather._host_t.values())
+          if torch.device(dev).type == "cuda" else None,
+          "launches": launches})
+    if got != n or not kv_ok or not st_ok:
+        fail(f"{lm.cfg.name} swap round: {got} of {n} pages back, KV "
+             f"bitwise {kv_ok}, state bitwise {st_ok}")
+    if not all(len(nxt[i]) == 8 for i in ids[1:]):
+        fail(f"{lm.cfg.name}: decode did not resume after the swap")
+    engine.alloc.check_invariants()
+    check_recorded(recorder, f"families:{lm.cfg.name}:swap")
+    return launches
+
+
+def family_run(torch, np, arch, n_layers, prm_layers, why, smi, dev,
+               shrink=None, timer=None):
+    """One family: greedy ETS over 4 seeded prompts (width 8, 3 steps,
+    32 tokens per step) in paged and, where the model has attention, in
+    tree mode; the two trees must be equal.  Returns the path's launches
+    and prints one ``families`` line per mode and a summary; with a
+    ``timer``, the path's largest kernel calls are timed beside their
+    bounds (``families_replay`` lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    base = fresh_peak(torch, dev)
+    models = family_models(torch, arch, n_layers, prm_layers, dev, shrink)
+    (lm, lp), (prm, pp), (emb, ep) = models
+    cfg = lm.cfg
+    emit({"phase": "families_model", "arch": arch,
+          "n_layers": cfg.n_layers, "n_layers_full": get_config(arch).n_layers,
+          "depth_cut": why, "d_model": cfg.d_model,
+          "head_dim": cfg.head_dim, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
+          "dtype": cfg.dtype, "lm_params": param_count(lp),
+          "prm_layers": prm.cfg.n_layers, "prm_params": param_count(pp),
+          "plan": cfg.layer_plan()})
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+               for n in rng.integers(128, 257, 4)]
+    ecfg_over = dict(n_state_pages=FAMILY_STATE_PAGES)
+    bcfg_over = dict(step_token=FAMILY_STEP_TOKEN, eos_token=FAMILY_EOS_TOKEN)
+    modes = ["paged"] if cfg.is_attention_free else ["paged", "tree"]
+    # warm-up, untimed: one-time costs (cuBLAS handles, allocator growth)
+    from repro_torch.serving import EngineConfig, PagedEngine
+    warm = PagedEngine(lm, lp, EngineConfig(
+        n_pages=256, page_size=16, max_batch=8, max_seq_len=512,
+        n_state_pages=8), device=dev)
+    rows = [b for s in warm.prefill_many(prompts[:2])
+            for b in warm.branch(s, 2)]
+    warm.decode(rows, 2, key=0, temperature=0.0)
+    del warm, rows
+    recorder = Recorder(ops)
+    runs, launches = {}, {k.name: 0 for k in ops.KERNELS}
+    for mode in modes:
+        res, _, l_m, info = run_mode(
+            torch, np, mode, models, prompts, recorder, phase="families",
+            ecfg_over=ecfg_over, bcfg_over=bcfg_over,
+            info_over={"arch": arch, "nvidia_smi": smi}, dev=dev)
+        runs[mode] = (res, l_m, info)
+        for k, v in l_m.items():
+            launches[k] += v
+    summary = {"phase": "families_summary", "arch": arch, "modes": modes,
+               "launches": launches}
+    if "tree" in runs:
+        same, worst = same_trees(runs["paged"][0], runs["tree"][0])
+        summary.update(same_tree=same, max_reward_rel_gap=worst,
+                       tol_reward=TOL_FAMILY_REWARD)
+        if not same or worst > TOL_FAMILY_REWARD:
+            emit(summary)
+            fail(f"{arch}: paged and tree give different trees ({same}) "
+                 f"or rewards ({worst})")
+        if not (runs["paged"][1]["paged_attention"]
+                and runs["tree"][1]["tree_attention"]
+                and launches["flash_prefill"]):
+            fail(f"{arch}: a kernel of the path did not launch: {launches}")
+    elif any(launches.values()):
+        fail(f"{arch} is attention-free, yet kernels launched: {launches}")
+    if arch == "zamba2-7b":
+        summary["swap_launches"] = family_swap_round(
+            torch, models, prompts[0], smi, dev)
+    summary["peak_over_phase_base_bytes"] = peak_bytes(torch, dev) - base
+    summary["memory_allocated_at_phase_start"] = base
+    emit(summary)
+    if recorder.best:
+        check_recorded(recorder, f"families:{arch}")
+    for name, (_, args, kw) in sorted(recorder.best.items()):
+        if timer is not None:
+            emit({"phase": "families_replay", "path": f"families:{arch}",
+                  "kernel": name, "shapes": [list(a.shape) for a in args],
+                  "dtype": str(args[0].dtype), "nvidia_smi": smi,
+                  **replay_call(torch, name, args, kw, recorder.orig[name],
+                                timer, f"the families:{arch} path's "
+                                f"largest call, timed")})
+    del models, lm, lp, prm, pp, emb, ep, runs, recorder
+    fresh_peak(torch, dev)
+    return launches, summary.get("swap_launches")
+
+
+def phase_families(torch, np, smi, dev="cuda", shrink=None, timer=None):
+    """zamba2-7b at full width and depth, then deepseek-moe-16b,
+    mamba2-370m and rwkv6-7b at full width (depth cuts printed), each
+    freed before the next.  Returns launches per path."""
+    by_path = {}
+    for arch, n_layers, prm_layers, why in FAMILY_RUNS:
+        launches, swap = family_run(torch, np, arch, n_layers, prm_layers,
+                                    why, smi, dev, shrink, timer)
+        by_path[f"families:{arch}"] = launches
+        if swap is not None:
+            by_path[f"families:{arch}:swap"] = swap
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1774,6 +2091,7 @@ def main() -> int:
     by_path["train"] = phase_train(torch, np, smi)
     by_path["example"] = phase_example(torch, smi)
     by_path["serve"] = phase_serve(torch, smi)
+    by_path.update(phase_families(torch, np, smi, timer=timer))
     from repro_torch.kernels import ops
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in ops.KERNELS}

@@ -5,7 +5,11 @@ leaf already a numpy array (the caller converts, e.g. with
 ``jax.tree.map(np.asarray, params)``, so this module never imports jax)
 and copies it into tensors on ``device``.  The port keeps the reference
 layout (``x @ w`` with ``w`` shaped ``(d_in, d_out)``, per-group layer
-stacks under ``groups[gi]``), so the bridge is a plain copy.
+stacks under ``groups[gi]``), so the bridge is a plain copy: nested
+family groups (``mamba``, ``time_mix``/``channel_mix``, ``moe``),
+``(count, attn_every, ...)`` hybrid stacks, Zamba2's ``shared_attn``
+block and int8 ``{"q", "s"}`` expert banks keep their structure and
+dtypes.
 ``params_to_numpy`` is its inverse, for any port tree (trained params,
 AdamW state).
 """
@@ -19,23 +23,32 @@ import torch
 from .device import resolve_device
 from .models.model import tree_map
 
-_KEYS = ("embed", "groups", "ln_f", "value_head", "lm_head")
+_KEYS = ("embed", "groups", "shared_attn", "ln_f", "value_head", "lm_head")
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg, device=None
                     ) -> Dict[str, Any]:
     """Copy a reference params tree (numpy leaves) onto ``device``.
 
-    Covers the dense and encoder families: ``embed``, ``groups[gi]``
-    (layer stacks), ``ln_f``, and when present ``value_head`` (PRM) and
-    ``lm_head`` (untied embeddings).
+    Covers the dense, encoder, MoE, SSM and hybrid families: ``embed``,
+    ``groups[gi]`` (layer stacks), ``ln_f``, and when present
+    ``shared_attn`` (hybrid), ``value_head`` (PRM) and ``lm_head``
+    (untied embeddings).  The modality frontends' ``frontend_proj`` is
+    a later slice.
     """
     dev = resolve_device(device)
     extra = set(np_params) - set(_KEYS)
     if extra:
         raise NotImplementedError(
-            f"params of {cfg.name} carry {sorted(extra)}: families beyond "
-            f"dense/encoder are a later slice")
+            f"params of {cfg.name} carry {sorted(extra)}: the modality "
+            f"frontends are a later slice")
+    if ("shared_attn" in np_params) != (cfg.arch_type == "hybrid"):
+        raise ValueError(f"{cfg.name}: shared_attn presence disagrees with "
+                         f"arch_type={cfg.arch_type}")
+    n_groups = len(np_params.get("groups", ()))
+    if n_groups != len(cfg.layer_plan()):
+        raise ValueError(f"{cfg.name}: {n_groups} layer groups, the plan "
+                         f"has {len(cfg.layer_plan())}")
     if np_params["embed"].shape != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed has shape {np_params['embed'].shape}, "
                          f"{cfg.name} needs {(cfg.vocab_size, cfg.d_model)}")

@@ -43,10 +43,16 @@
 // fragment, which is added to the running S or O with an ordinary
 // round-to-nearest fp32 add: no chain inside the tensor cores is longer
 // than three products.  At hd <= 64 the split Q
-// fragments are made once and stay in registers; at hd 96 and 128 they
+// fragments are made once and stay in registers; at hd 96 to 128 they
 // would spill, so Q is read from shared memory and split at each
 // k-step.  bf16 inputs: bf16 MMA with fp32 accumulation, P rounded to
-// bf16 before P.V.  hd is 32, 64, 96 or 128 (a template parameter).
+// bf16 before P.V.  hd is 32, 64, 96, 112 or 128 (a template
+// parameter).  The loops need only hd % 16 == 0: rows are staged in
+// 16-byte chunks (hd 112: 28 fp32 / 14 bf16 chunks, strided over the
+// CTA's threads), QK^T takes hd / 8 TF32 or hd / 16 bf16 k-steps and
+// P.V hd / 8 n-tiles of 8 columns; no warp or lane maps onto the head
+// dim, and the padded row stride (hd + 16 bytes) keeps 16-byte
+// alignment and conflict-free fragment loads at every instance.
 #include "common.cuh"
 
 constexpr int FP_BM = 64;      // packed query rows per CTA
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(FP_WARPS * 32) flash_prefill_kernel(
   constexpr int CH = HD / EPC;               // chunks per row
   constexpr int LD = HD + EPC;               // shared row stride (elements)
   // fp32 at hd <= 64: the split Q fragments stay in registers for the
-  // whole key loop (2 x hd / 2 registers; at hd 96 and 128 they spill)
+  // whole key loop (2 x hd / 2 registers; at hd 96 to 128 they spill)
   constexpr bool QREG = F32 && HD <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);    // FP_BM x LD
@@ -392,13 +398,14 @@ static int dispatch(const void* q, const void* k, const void* v, void* out,
     case 32: return launch<T, 32>(q, k, v, out, B, S, K, G, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, S, K, G, causal, window, scale, stream);
     case 96: return launch<T, 96>(q, k, v, out, B, S, K, G, causal, window, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, out, B, S, K, G, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, S, K, G, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // C entry point (loaded with ctypes).  The Python wrapper checks shapes
-// (hd in {32, 64, 96, 128}, G >= 1), types, contiguity and 16-byte
+// (hd in {32, 64, 96, 112, 128}, G >= 1), types, contiguity and 16-byte
 // alignment.  Returns the launch's cudaError_t (0 = success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,

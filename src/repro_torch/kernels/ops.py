@@ -240,7 +240,7 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     return out
 
 
-FLASH_HEAD_DIMS = (32, 64, 96, 128)    # the kernel's template instances
+FLASH_HEAD_DIMS = (32, 64, 96, 112, 128)   # the kernel's template instances
 
 
 def flash_prefill(q, k, v, *, scale: float, causal: bool = True,

@@ -14,6 +14,10 @@ by the device-to-host copy, which runs on a side stream into pinned
 host buffers.  A prefill that reuses the freed pages right after the
 gather therefore cannot corrupt the spill.
 
+``StatePool`` holds the recurrent families' constant-size state, one
+page per live sequence, with the same in-place writes and the same
+snapshot-then-side-stream swap path (``PendingStateGather``).
+
 Also holds ``paged_attention_ref``, the plain PyTorch version of the
 paged decode kernel (its CPU path and its oracle on the card).
 """
@@ -24,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .allocator import CopyOp
+from .allocator import CopyOp, OutOfPages
 
 NEG_INF = -1e30
 
@@ -95,7 +99,7 @@ class KVPool:
         self.shape = shape
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
-        self._copy_stream = None     # side stream of swap-out copies
+        self._copy_stream = [None]   # side stream of swap-out copies
 
     def write_tokens(self, layer_k: torch.Tensor, layer_v: torch.Tensor,
                      pages: torch.Tensor, slots: torch.Tensor) -> None:
@@ -141,25 +145,9 @@ class KVPool:
         snap_v = self.v[:, idx]
         if dev.type != "cuda":
             return PendingGather(snap_k, snap_v, None)
-        compute = torch.cuda.current_stream(dev)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(dev)
-        side = self._copy_stream
-        side.wait_stream(compute)
-        host_k = torch.empty(snap_k.shape, dtype=snap_k.dtype,
-                             pin_memory=True)
-        host_v = torch.empty(snap_v.shape, dtype=snap_v.dtype,
-                             pin_memory=True)
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        with torch.cuda.stream(side):
-            events[0].record(side)
-            host_k.copy_(snap_k, non_blocking=True)
-            host_v.copy_(snap_v, non_blocking=True)
-            events[1].record(side)
-        snap_k.record_stream(side)
-        snap_v.record_stream(side)
-        return PendingGather(host_k, host_v, events)
+        host, events = _to_host_async({"k": snap_k, "v": snap_v}, dev,
+                                      self._copy_stream)
+        return PendingGather(host["k"], host["v"], events)
 
     def scatter_pages(self, pages: Sequence[int], host_k: np.ndarray,
                       host_v: np.ndarray) -> None:
@@ -188,6 +176,180 @@ class KVPool:
         flat_k = self.k[layer].reshape(-1, self.n_kv_heads, self.head_dim)
         flat_v = self.v[layer].reshape(-1, self.n_kv_heads, self.head_dim)
         return flat_k[idx], flat_v[idx]
+
+
+def _to_host_async(snaps: dict, device, stream_holder: list):
+    """Start copying device snapshots ``{name: tensor}`` into pinned host
+    buffers on a side stream; returns (host tensors, events).  The side
+    stream waits for the compute stream (the snapshots' producer), and
+    each snapshot is handed to the caching allocator with
+    ``record_stream`` so its memory outlives the copy."""
+    compute = torch.cuda.current_stream(device)
+    if stream_holder[0] is None:
+        stream_holder[0] = torch.cuda.Stream(device)
+    side = stream_holder[0]
+    side.wait_stream(compute)
+    host = {n: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for n, t in snaps.items()}
+    events = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    with torch.cuda.stream(side):
+        events[0].record(side)
+        for n, t in snaps.items():
+            host[n].copy_(t, non_blocking=True)
+        events[1].record(side)
+    for t in snaps.values():
+        t.record_stream(side)
+    return host, events
+
+
+# ---------------------------------------------------------------------------
+# Recurrent-state pages (mamba2 / rwkv6 / hybrid families)
+# ---------------------------------------------------------------------------
+
+class PendingStateGather:
+    """An in-flight state-page gather (the StatePool twin of
+    :class:`PendingGather`): device snapshot taken, copy into pinned
+    host buffers enqueued on the side stream, not yet waited for."""
+
+    def __init__(self, host: dict, events=None):
+        self._host_t = host
+        self._events = events           # (copy start, copy end)
+        self._host: Optional[dict] = None
+
+    @property
+    def pending(self) -> bool:
+        return self._host is None
+
+    def resolve(self) -> dict:
+        """``{name: (L, n, *per_page)}`` host arrays of the pages."""
+        if self._host is None:
+            if self._events is not None:
+                self._events[1].synchronize()
+            self._host = {n: t.numpy() for n, t in self._host_t.items()}
+        return self._host
+
+    def copy_ms(self) -> Optional[float]:
+        if self._events is None or self._host is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1])
+
+
+class StatePool:
+    """Constant-size recurrent state as a degenerate paged pool.
+
+    Recurrent layers (mamba2 SSD, rwkv6 wkv) carry O(1) state per
+    sequence instead of O(T) KV — exactly one page per sequence, so tree
+    search's branch/prune/swap machinery works over these families with
+    no new concepts: branch = copy the parent's page, prune = release,
+    demote = gather to host + release, promote = alloc + scatter.
+
+    Layout: one tensor per named state tensor, shaped ``(n_layers,
+    n_pages, *per_page)``, written in place.  ``specs`` maps ``name ->
+    (n_layers, per_page_shape, dtype)``; names are namespaced by the
+    runtime that owns them (``"0:h"``, ``"0:conv"``, ...).
+
+    The last page is the dump page: inactive decode rows read and write
+    it, and it is never allocated.  Pages are zeroed at allocation — a
+    fresh page is the empty-history state of every family, which is
+    what lets a streamed prefill read its state from the pool on every
+    segment, the first included.
+    """
+
+    def __init__(self, specs: dict, n_pages: int, *, device):
+        if n_pages < 2:
+            raise ValueError(f"a state pool needs >= 2 pages, got {n_pages}")
+        self.specs = dict(specs)
+        self.n_pages = n_pages
+        self.dump_page = n_pages - 1
+        self._free = list(range(n_pages - 1))
+        self.peak_used = 0
+        self.arrays = {
+            name: torch.zeros((L, n_pages) + tuple(shape), dtype=dtype,
+                              device=device)
+            for name, (L, shape, dtype) in self.specs.items()}
+        self._copy_stream = [None]   # side stream of swap-out copies
+
+    @property
+    def device(self):
+        return next(iter(self.arrays.values())).device
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes of one page across every state tensor."""
+        return sum(a[:, 0].numel() * a.element_size()
+                   for a in self.arrays.values())
+
+    # -- page accounting -------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - 1 - len(self._free)
+
+    def alloc(self, n: int) -> list:
+        """Allocate ``n`` zeroed pages (all-or-nothing)."""
+        if n > len(self._free):
+            raise OutOfPages(f"state pool exhausted: need {n} pages, "
+                             f"{len(self._free)} free")
+        pages = [self._free.pop() for _ in range(n)]
+        self.zero(pages)
+        self.peak_used = max(self.peak_used, self.used_pages)
+        return pages
+
+    def release(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            if not 0 <= p < self.dump_page:
+                raise ValueError(f"page {p} is not an allocatable page")
+            self._free.append(p)
+
+    def _idx(self, pages: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pages, np.int64),
+                               device=self.device)
+
+    # -- page ops (in place) ---------------------------------------------
+    def zero(self, pages: Sequence[int]) -> None:
+        if not len(pages):
+            return
+        idx = self._idx(pages)
+        for a in self.arrays.values():
+            a[:, idx] = 0
+
+    def copy_page(self, src: int, dsts: Sequence[int]) -> None:
+        """Copy-on-branch: duplicate ``src``'s state into each of ``dsts``."""
+        if not len(dsts):
+            return
+        idx = self._idx(dsts)
+        for a in self.arrays.values():
+            a[:, idx] = a[:, src:src + 1]
+
+    def gather_pages_async(self, pages: Sequence[int]) -> PendingStateGather:
+        """Snapshot the pages (on the compute stream, so the caller may
+        release and reuse them at once) and start their copy to pinned
+        host memory on a side stream, as ``KVPool.gather_pages_async``."""
+        idx = self._idx(pages)
+        snaps = {n: a[:, idx] for n, a in self.arrays.items()}
+        dev = self.device
+        if dev.type != "cuda":
+            return PendingStateGather(snaps, None)
+        host, events = _to_host_async(snaps, dev, self._copy_stream)
+        return PendingStateGather(host, events)
+
+    def scatter_pages(self, pages: Sequence[int], host: dict) -> None:
+        """Write host state-page copies back into the pool at ``pages``."""
+        n = len(pages)
+        if n == 0:
+            return
+        idx = self._idx(pages)
+        for name, arr in host.items():
+            if arr.shape[1] != n:
+                raise ValueError(f"{name}: {arr.shape[1]} pages for {n} "
+                                 f"targets")
+            a = self.arrays[name]
+            a[:, idx] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                a.device, a.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,29 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
     return (y * w.float()).to(dt)
 
 
+def rms_norm_gated(w: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2-style: RMSNorm(x * silu(z))."""
+    return rms_norm(w, x * F.silu(z.float()).to(x.dtype), eps)
+
+
+def group_norm_heads(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                     n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """RWKV-style per-head group norm.  x: (..., H*hd)."""
+    dt = x.dtype
+    shp = x.shape
+    x = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = ((x - mu) * torch.rsqrt(var + eps)).reshape(shp)
+    return (x * w.float() + b.float()).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(e^-|x|)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -1,16 +1,26 @@
-"""Language model, dense and encoder families (port of
-``repro.models.model``).
+"""Language model: dense, encoder, MoE, SSM (mamba2, rwkv6) and hybrid
+(zamba2) families (port of ``repro.models.model``).
 
 ``LM(cfg)`` is functional like the reference: params are a nested dict
 of tensors in the reference layout, so the bridge from reference params
 is a plain copy.
 
   * ``init(generator)``            — parameter init (fp32 master params)
-  * ``forward(params, batch)``     — full-sequence logits
-  * ``loss(params, batch)``        — next-token CE (training)
+  * ``forward(params, batch)``     — full-sequence logits (+ MoE aux)
+  * ``loss(params, batch)``        — next-token CE (training; dense and
+                                     encoder plans)
   * ``hidden(params, batch)``      — final-layer normed hidden states
   * ``reward(params, batch)``      — PRM scalar head (with_value_head)
   * ``embed_inputs`` / ``logits``  — the pieces the paged engine composes
+
+Family specifics, as in the reference:
+  dense/encoder — GQA attention + (Sw)iGLU/GELU MLP.
+  moe     — GQA attention + sort-dispatch MoE FFN (models/moe.py).
+  ssm     — RWKV6 time-mix + channel-mix (models/rwkv6.py), or Mamba2
+      blocks (models/mamba2.py).
+  hybrid  — Zamba2: Mamba2 backbone; one *shared* attention+MLP block
+      applied after every ``attn_every``-th mamba layer
+      (``hybrid_super`` groups, params stacked (count, attn_every, ...)).
 
 dtype flow follows the reference op by op: master params are fp32,
 ``forward``/``hidden``/``reward`` cast them to the compute type
@@ -29,6 +39,9 @@ import torch
 
 from ..device import resolve_device
 from . import attention as A
+from . import mamba2 as M
+from . import moe as MOE
+from . import rwkv6 as R
 from .layers import dense_init, embed_init, matmul, mlp_apply, mlp_init, \
     rms_norm, softmax_cross_entropy
 
@@ -59,13 +72,24 @@ def layer_slice(group: Params, l: int) -> Params:
 
 
 def _stack_init(fn: Callable[[], Params], n: int) -> Params:
-    """Stack n param trees along a new leading axis."""
-    def stack(ts):
-        if isinstance(ts[0], dict):
-            return {k: stack([t[k] for t in ts]) for k in ts[0]}
-        return torch.stack(ts)
+    """Stack n param trees along a new leading axis.  The stack is
+    allocated once and filled tree by tree, so the peak is the stack
+    plus one tree (not two copies of the stack)."""
+    first = fn()
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
 
-    return stack([fn() for _ in range(n)])
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, fn(), i)
+    return out
 
 
 def compute_dtype_of(cfg) -> torch.dtype:
@@ -75,10 +99,11 @@ def compute_dtype_of(cfg) -> torch.dtype:
 class LM:
     def __init__(self, cfg, *, with_value_head: bool = False,
                  device=None):
-        if cfg.arch_type not in ("dense", "encoder"):
+        if cfg.arch_type not in ("dense", "encoder", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.arch_type}): the port serves dense and "
-                f"encoder models so far; other families are a later slice")
+                f"{cfg.name} ({cfg.arch_type}): the port serves the dense, "
+                f"encoder, MoE, SSM and hybrid families; M-RoPE and the "
+                f"modality frontends are a later slice")
         self.cfg = cfg
         self.with_value_head = with_value_head
         self.device = resolve_device(device)
@@ -102,16 +127,45 @@ class LM:
         p: Params = {"embed": embed_init(generator, cfg.vocab_size,
                                          cfg.d_model, dt)}
 
-        def attn_block():
-            return {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-                    "attn": A.attn_init(generator, cfg, dt),
-                    "ln2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-                    "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                    cfg.act, dt)}
+        def ones():
+            return torch.ones((cfg.d_model,), dtype=dt, device=dev)
 
-        p["groups"] = [_stack_init(attn_block, count)
-                       for _, count in self.plan]
-        p["ln_f"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+        def attn_block():
+            blk = {"ln1": ones(), "attn": A.attn_init(generator, cfg, dt),
+                   "ln2": ones()}
+            if cfg.arch_type == "moe":
+                blk["moe"] = MOE.moe_init(generator, cfg, dt)
+            else:
+                blk["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                      cfg.act, dt)
+            return blk
+
+        def wkv_block():
+            return {"ln1": ones(), "time_mix": R.rwkv_init(generator, cfg, dt),
+                    "ln2": ones(),
+                    "channel_mix": R.channel_mix_init(generator, cfg, dt)}
+
+        def mamba_block():
+            return {"ln": ones(), "mamba": M.mamba_init(generator, cfg, dt)}
+
+        groups = []
+        for kind, count in self.plan:
+            if kind == "attn":
+                groups.append(_stack_init(attn_block, count))
+            elif kind == "wkv":
+                groups.append(_stack_init(wkv_block, count))
+            elif kind == "mamba":
+                groups.append(_stack_init(mamba_block, count))
+            elif kind == "hybrid_super":
+                k_inner = cfg.attn_every
+                groups.append(_stack_init(
+                    lambda: _stack_init(mamba_block, k_inner), count))
+            else:
+                raise ValueError(kind)
+        p["groups"] = groups
+        if cfg.arch_type == "hybrid":
+            p["shared_attn"] = attn_block()
+        p["ln_f"] = ones()
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
                                       dt)
@@ -152,35 +206,132 @@ class LM:
         return matmul(x, head.to(self.compute_dtype))
 
     # ------------------------------------------------------------------
-    # Full-sequence pass
+    # Layer bodies (full sequence, zero initial state)
     # ------------------------------------------------------------------
+    def ffn(self, blk: Params, h: torch.Tensor):
+        """The block's FFN: dense MLP, or MoE over the flattened tokens.
+        Returns (y, aux)."""
+        cfg = self.cfg
+        if "moe" in blk:
+            shp = h.shape
+            y, aux = MOE.moe_apply_auto(blk["moe"], h.reshape(-1, shp[-1]),
+                                        cfg)
+            return y.reshape(shp), aux
+        return mlp_apply(blk["mlp"], h, cfg.act), 0.0
+
     def _attn_layer_full(self, blk: Params, x, positions):
         cfg = self.cfg
         h = rms_norm(blk["ln1"], x, cfg.norm_eps)
         x = x + A.attn_full(blk["attn"], h, cfg, positions)
         h = rms_norm(blk["ln2"], x, cfg.norm_eps)
-        return x + mlp_apply(blk["mlp"], h, cfg.act)
+        y, aux = self.ffn(blk, h)
+        return x + y, aux
 
+    def wkv_layer_full(self, blk: Params, x, state, lengths=None):
+        """RWKV6 block over a (right-padded) sequence: time-mix, then
+        channel-mix with its own token shift of the normed stream.
+        Returns (x, new state); with ``lengths`` the state is exactly
+        the post-prefix state of each row."""
+        cfg = self.cfg
+        B, T, d = x.shape
+        h = rms_norm(blk["ln1"], x, cfg.norm_eps)
+        y, tm_new = R.rwkv_apply_full(blk["time_mix"], h, cfg, state,
+                                      lengths=lengths)
+        x = x + y
+        h2 = rms_norm(blk["ln2"], x, cfg.norm_eps)
+        shift = torch.cat([state["x_prev"][:, 1:2].to(h2.dtype), h2[:, :-1]],
+                          dim=1)
+        y = R.channel_mix_apply(blk["channel_mix"], h2, shift)
+        # channel-mix shift state: h2 at the last valid position
+        if lengths is None:
+            last = h2[:, -1]
+        else:
+            idx = torch.clamp(lengths.long() - 1, min=0)
+            last = h2[torch.arange(B, device=x.device), idx]
+            last = torch.where((lengths > 0)[:, None], last,
+                               state["x_prev"][:, 1].to(h2.dtype))
+        x_prev = torch.stack([tm_new["x_prev"][:, 0],
+                              last.to(tm_new["x_prev"].dtype)], dim=1)
+        return x + y, {"S": tm_new["S"], "x_prev": x_prev}
+
+    def wkv_layer_decode(self, blk: Params, x, state):
+        """RWKV6 block, one token.  x (B,1,d)."""
+        cfg = self.cfg
+        h = rms_norm(blk["ln1"], x, cfg.norm_eps)
+        y, tm_new = R.rwkv_decode_step(blk["time_mix"], h, cfg, state)
+        x = x + y
+        h = rms_norm(blk["ln2"], x, cfg.norm_eps)
+        shift = state["x_prev"][:, 1:2].to(h.dtype)
+        y = R.channel_mix_apply(blk["channel_mix"], h, shift)
+        x_prev = torch.stack([tm_new["x_prev"][:, 0],
+                              h[:, 0].to(tm_new["x_prev"].dtype)], dim=1)
+        return x + y, {"S": tm_new["S"], "x_prev": x_prev}
+
+    def mamba_layer_full(self, blk: Params, x, state, lengths=None):
+        h = rms_norm(blk["ln"], x, self.cfg.norm_eps)
+        y, new = M.mamba_apply_full(blk["mamba"], h, self.cfg, state,
+                                    lengths=lengths)
+        return x + y, new
+
+    def mamba_layer_decode(self, blk: Params, x, state):
+        h = rms_norm(blk["ln"], x, self.cfg.norm_eps)
+        y, new = M.mamba_decode_step(blk["mamba"], h, self.cfg, state)
+        return x + y, new
+
+    # ------------------------------------------------------------------
+    # Full-sequence pass
+    # ------------------------------------------------------------------
     def _run_full(self, p: Params, x, positions):
-        for gi, (_, count) in enumerate(self.plan):
+        """Every layer group over the whole sequence, from zero state.
+        Returns (x, total MoE aux)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        aux_total = 0.0
+        for gi, (kind, count) in enumerate(self.plan):
             gp = p["groups"][gi]
             for l in range(count):
-                x = self._attn_layer_full(layer_slice(gp, l), x, positions)
-        return x
+                blk = layer_slice(gp, l)
+                if kind == "attn":
+                    x, aux = self._attn_layer_full(blk, x, positions)
+                    aux_total = aux_total + aux
+                elif kind == "wkv":
+                    x, _ = self.wkv_layer_full(
+                        blk, x, R.init_rwkv_state(cfg, B, device=x.device))
+                elif kind == "mamba":
+                    x, _ = self.mamba_layer_full(
+                        blk, x, M.init_mamba_state(cfg, B, device=x.device))
+                elif kind == "hybrid_super":
+                    for j in range(cfg.attn_every):
+                        x, _ = self.mamba_layer_full(
+                            layer_slice(blk, j), x,
+                            M.init_mamba_state(cfg, B, device=x.device))
+                    x, _ = self._attn_layer_full(p["shared_attn"], x,
+                                                 positions)
+                else:
+                    raise ValueError(kind)
+        return x, aux_total
 
     # ------------------------------------------------------------------
     # Public
     # ------------------------------------------------------------------
     def forward(self, p: Params, batch: Dict[str, Any]):
-        """Full-sequence logits (B,S,V) and the (zero) MoE aux loss."""
+        """Full-sequence logits (B,S,V) and the MoE aux loss (0 for
+        the other families)."""
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x = self._run_full(p, x, positions)
-        return self.logits(p, x), 0.0
+        x, aux = self._run_full(p, x, positions)
+        return self.logits(p, x), aux
 
     def loss(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Next-token CE over ``batch["labels"]`` (masked by
-        ``loss_mask``), plus the load-balance term (0 for dense)."""
+        ``loss_mask``).  Dense and encoder plans: the MoE load-balance
+        term and the recurrent families' training wait for the
+        families' training slice."""
+        if self.cfg.arch_type not in ("dense", "encoder"):
+            raise NotImplementedError(
+                f"{self.cfg.name} ({self.cfg.arch_type}): LM.loss of the "
+                f"MoE, SSM and hybrid families (with the MoE aux term) is "
+                f"the families' training slice (ROADMAP queue 1)")
         logits, aux = self.forward(p, batch)
         labels = batch["labels"]
         # align: logits for positions covering the label span (suffix)
@@ -194,7 +345,7 @@ class LM:
         """Final-layer hidden states (B, S, d) — embedder API."""
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x = self._run_full(p, x, positions)
+        x, _ = self._run_full(p, x, positions)
         return rms_norm(p["ln_f"], x, self.cfg.norm_eps)
 
     def reward(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -203,7 +354,7 @@ class LM:
             raise ValueError("reward needs a model built with_value_head")
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x = self._run_full(p, x, positions)
+        x, _ = self._run_full(p, x, positions)
         x = rms_norm(p["ln_f"], x, self.cfg.norm_eps)
         v = matmul(x, p["value_head"].to(x.dtype))[..., 0]
         return torch.sigmoid(v.float())

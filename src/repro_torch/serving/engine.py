@@ -43,7 +43,14 @@ pressure ``swap_out`` demotes a problem's pages to a host spill buffer
 (pinned memory on a card) and ``swap_in`` restores them into fresh
 pages; decode then resumes bit-identically.
 
-Not in this slice: recurrent-state pools, meshes.
+Recurrent families (mamba2, rwkv6, the hybrid zamba2) keep their
+constant-size state in a second pool (``kvcache.StatePool``), one page
+per live sequence: prefill writes the post-prompt state, decode reads
+and writes it in place, ``branch`` copies the parent's page,
+``free`` releases it and ``swap_out``/``swap_in`` spill and restore it
+with the KV pages.  Admission is all-or-nothing across both pools.
+
+Not in this slice: meshes.
 """
 from __future__ import annotations
 
@@ -55,9 +62,11 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..kvcache import KVPool, PageAllocator
-from ..kvcache.pool import PendingGather, pow2_bucket
-from .runtimes import DecodeCtx, PrefillCtx, build_runtimes, total_kv_layers
+from ..kvcache import KVPool, PageAllocator, StatePool
+from ..kvcache.allocator import OutOfPages
+from ..kvcache.pool import PendingGather, PendingStateGather, pow2_bucket
+from .runtimes import (DecodeCtx, PrefillCtx, build_runtimes,
+                       collect_state_specs, total_kv_layers)
 from .sampler import as_keys, sample_tokens_rowwise, split, split_rows
 from .sampler import key as prng_key
 
@@ -73,6 +82,11 @@ class EngineConfig:
     # prompts longer than this many tokens prefill in page-streamed
     # segments instead of one bucket (None = always one bucket)
     prefill_chunk_tokens: Optional[int] = None
+    # recurrent-state pages (mamba2/rwkv6/hybrid families): one page per
+    # live sequence, the last page is the dump target.  None = n_pages.
+    # A page holds every recurrent layer's state (zamba2-7b: 148.5 MiB in
+    # float32), so large models set this well below n_pages.
+    n_state_pages: Optional[int] = None
 
     def __post_init__(self):
         if self.attention not in ("paged", "tree"):
@@ -85,6 +99,10 @@ class EngineConfig:
                     f"prefill_chunk_tokens={self.prefill_chunk_tokens} is "
                     f"smaller than page_size={self.page_size}: a streamed "
                     f"segment must cover at least one pool page")
+        if self.n_state_pages is not None and self.n_state_pages < 2:
+            raise ValueError(
+                f"n_state_pages={self.n_state_pages} must be >= 2 (one live "
+                f"page plus the dump page)")
 
 
 class PagedEngine:
@@ -118,10 +136,21 @@ class PagedEngine:
         self.alloc = PageAllocator(ecfg.n_pages - 1, ecfg.page_size)
         self.runtimes = build_runtimes(model)
         self.n_kv_layers = total_kv_layers(self.runtimes)
+        # attention-free models keep a zero-layer pool: the page axes
+        # stay (block tables drive token bookkeeping), the tensors hold
+        # no bytes; head dims are clamped to 1 to keep the shape valid
         self.pool = KVPool(self.n_kv_layers, ecfg.n_pages, ecfg.page_size,
-                           cfg.n_kv_heads, cfg.head_dim, dtype=torch.float32,
-                           device=self.device)
-        self.scale = cfg.head_dim ** -0.5
+                           max(cfg.n_kv_heads, 1), max(cfg.head_dim, 1),
+                           dtype=torch.float32, device=self.device)
+        self.scale = cfg.head_dim ** -0.5 if cfg.head_dim else 1.0
+        # recurrent-state pool (None for attention-only stacks)
+        state_specs = collect_state_specs(self.runtimes)
+        self.state: Optional[StatePool] = None
+        self.state_of: Dict[int, int] = {}    # seq_id -> state page
+        if state_specs:
+            self.state = StatePool(state_specs,
+                                   ecfg.n_state_pages or ecfg.n_pages,
+                                   device=self.device)
         self.tokens: Dict[int, List[int]] = {}   # full token history
         self.max_pages_per_seq = -(-ecfg.max_seq_len // ecfg.page_size)
         # throughput accounting: decode streams opened, lock-step
@@ -143,9 +172,13 @@ class PagedEngine:
         # demoted problem's pages wait in until swap-in.  A list because
         # a partial swap_out may spill one namespace in several waves.
         self._spill: Dict[int, List[Tuple[List[int], PendingGather]]] = {}
+        # ns -> [(seq_ids, PendingStateGather)]: the state-page twin of
+        # the KV spill buffer (recurrent families; empty otherwise)
+        self._state_spill: Dict[
+            int, List[Tuple[List[int], PendingStateGather]]] = {}
         # FIFO of not-yet-resolved gathers: at most _spill_buffers host
         # copies stay un-waited-for, so demotion overlaps decode
-        self._pending_spills: List[PendingGather] = []
+        self._pending_spills: List[object] = []
         self._spill_buffers = 2
         # per-step attention IO: pages the attention streams (unique —
         # tree mode dedups shared prefixes) vs the per-leaf total a paged
@@ -159,6 +192,20 @@ class PagedEngine:
     def _put(self, arr) -> torch.Tensor:
         """A host-built operand on the engine's device."""
         return torch.as_tensor(np.asarray(arr), device=self.device)
+
+    def _state_rows(self, seq_ids, n_rows: int) -> torch.Tensor:
+        """(n_rows,) state page per row on the device: the dump page
+        for padding rows and for attention-only stacks (whose steps get
+        an empty state dict, so the indices are then inert)."""
+        dump = self.state.dump_page if self.state is not None else 0
+        srows = np.full(n_rows, dump, np.int64)
+        for r, sid in enumerate(seq_ids):
+            if sid is not None and sid in self.state_of:
+                srows[r] = self.state_of[sid]
+        return self._put(srows)
+
+    def _state_in(self) -> dict:
+        return self.state.arrays if self.state is not None else {}
 
     # ------------------------------------------------------------------
     # Stats
@@ -177,22 +224,26 @@ class PagedEngine:
     # Model steps
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _prefill_step(self, tokens, positions, pages, slots, lengths):
+    def _prefill_step(self, tokens, positions, pages, slots, lengths,
+                      srows):
         """One lock-step prefill over a right-padded prompt bucket.
 
         tokens/positions/pages/slots (B,T), positions -1 at padded
-        slots; lengths (B,) valid tokens per row (0 = padding row).
-        Each layer writes its K/V into the pool pages before attention.
-        Returns the rows' last-token logits (zeros for padding rows).
+        slots; lengths (B,) valid tokens per row (0 = padding row);
+        srows (B,) state page per row.  Each attention layer writes its
+        K/V into the pool pages before attention; recurrent layers run
+        the masked scan and write each row's post-prompt state into its
+        state page.  Returns the rows' last-token logits (zeros for
+        padding rows).
         """
         B, T = tokens.shape
         x, _ = self.model.embed_inputs(self.params, {"tokens": tokens,
                                                      "positions": positions})
         ctx = PrefillCtx(positions=positions, pages=pages, slots=slots,
-                         lengths=lengths)
+                         lengths=lengths, state_rows=srows)
         for rt in self.runtimes:
             x = rt.prefill_into_pool(self.params, x, ctx, self.pool.k,
-                                     self.pool.v)
+                                     self.pool.v, self._state_in())
         idx = torch.clamp(lengths.long() - 1, 0, T - 1)
         logits = self.model.logits(self.params,
                                    x[torch.arange(B, device=x.device), idx])
@@ -200,7 +251,7 @@ class PagedEngine:
 
     @torch.no_grad()
     def _streamed_step(self, tokens, positions, pages, slots, length: int,
-                       hist_table, hist_len: int):
+                       hist_table, hist_len: int, srows):
         """One segment of a page-streamed long-prompt prefill.
 
         tokens/positions/pages/slots (1,Ts): the segment, right padded
@@ -209,32 +260,39 @@ class PagedEngine:
         padded); ``hist_len`` tokens already in the pool.  Each layer
         writes the segment's K/V into the pool, then attends causally
         within the segment and over the history gathered through the
-        block table.  Returns the segment's last-token logits (1, V).
+        block table.  Recurrent layers continue the scan from the
+        state page ``srows`` (1,) and write it back.  Returns the
+        segment's last-token logits (1, V).
         """
         x, _ = self.model.embed_inputs(self.params, {"tokens": tokens,
                                                      "positions": positions})
+        lengths = torch.full((tokens.shape[0],), length, dtype=torch.int32,
+                             device=tokens.device)
         ctx = PrefillCtx(positions=positions, pages=pages, slots=slots,
-                         lengths=None, hist_table=hist_table,
-                         hist_len=hist_len)
+                         lengths=lengths, hist_table=hist_table,
+                         hist_len=hist_len, state_rows=srows)
         for rt in self.runtimes:
             x = rt.prefill_streamed(self.params, x, ctx, self.pool.k,
-                                    self.pool.v)
+                                    self.pool.v, self._state_in())
         return self.model.logits(self.params, x[:, length - 1])
 
     @torch.no_grad()
-    def _decode_step(self, tokens, lengths, pages, slots, active, attend):
+    def _decode_step(self, tokens, lengths, pages, slots, active, srows,
+                     attend):
         """Shared body of one lock-step decode over the runtime stack.
 
         tokens (B,) previous tokens; lengths (B,) context length
-        (position of the new token); pages/slots (B,) KV write targets.
+        (position of the new token); pages/slots (B,) KV write targets;
+        srows (B,) state pages.
         ``attend(kv_layer, q, pool_k, pool_v) -> (B, H, hd)`` is the only
         thing the two attention modes disagree on.
         """
         x = self.params["embed"].float()[tokens][:, None]   # (B,1,d)
         ctx = DecodeCtx(lengths=lengths, pages=pages, slots=slots,
-                        attend=attend)
+                        attend=attend, state_rows=srows)
         for rt in self.runtimes:
-            x = rt.decode_step(self.params, x, ctx, self.pool.k, self.pool.v)
+            x = rt.decode_step(self.params, x, ctx, self.pool.k, self.pool.v,
+                               self._state_in())
         logits = self.model.logits(self.params, x[:, 0])
         return torch.where(active[:, None], logits, 0.0)
 
@@ -283,7 +341,13 @@ class PagedEngine:
         if any(len(t) > self.ecfg.max_seq_len for t in all_toks):
             raise ValueError("prompt exceeds max_seq_len")
         ctxs = [t[:-1] for t in all_toks]
+        # all-or-nothing across both pools: check the state pool before
+        # the allocator commits KV pages, allocate state pages after
+        self._check_state_room(len(ctxs))
         handles = self.alloc.new_seqs([len(c) for c in ctxs], ns=ns)
+        if self.state is not None:
+            for h, pg in zip(handles, self.state.alloc(len(handles))):
+                self.state_of[h.seq_id] = pg       # zeroed at alloc
         for h, t in zip(handles, all_toks):
             self.tokens[h.seq_id] = t
         pct = self.ecfg.prefill_chunk_tokens
@@ -311,6 +375,7 @@ class PagedEngine:
         pages = np.full((Bp, T), self.dump_page, np.int32)
         slots = np.zeros((Bp, T), np.int32)
         lens = np.zeros(Bp, np.int32)
+        srows = self._state_rows([h.seq_id for h in handles], Bp)
         n_tokens = 0
         for r, (h, ctx) in enumerate(zip(handles, ctxs)):
             n = len(ctx)
@@ -326,9 +391,9 @@ class PagedEngine:
         self.n_prefill_tokens += n_tokens
         logits = self._prefill_step(
             self._put(tok).long(), self._put(pos), self._put(pages).long(),
-            self._put(slots).long(), self._put(lens))
+            self._put(slots).long(), self._put(lens), srows)
         if self.ecfg.trace_logits:
-            self.logits_trace.append(logits.cpu().numpy())
+            self.logits_trace.append(logits.float().cpu().numpy())
 
     def _prefill_streamed(self, h, ctx) -> None:
         """Page-streamed prefill of ONE long prompt.
@@ -349,6 +414,7 @@ class PagedEngine:
         tbl = np.zeros((1, Tp), np.int64)
         tbl[0, :len(h.block_table)] = h.block_table
         tbl_t = self._put(tbl)
+        srows = self._state_rows([h.seq_id], 1)
         for s0 in range(0, n, pct):
             s1 = min(s0 + pct, n)
             m = s1 - s0
@@ -366,14 +432,27 @@ class PagedEngine:
             self.n_prefill_tokens += m
             logits = self._streamed_step(
                 self._put(tok), self._put(pos), self._put(pages),
-                self._put(slots), m, tbl_t, s0)
+                self._put(slots), m, tbl_t, s0, srows)
         if self.ecfg.trace_logits:
-            self.logits_trace.append(logits.cpu().numpy())
+            self.logits_trace.append(logits.float().cpu().numpy())
+
+    def _check_state_room(self, n: int) -> None:
+        if self.state is not None and n > self.state.n_free:
+            raise OutOfPages(f"state pool exhausted: need {n} pages, "
+                             f"{self.state.n_free} free")
 
     def branch(self, seq_id: int, n: int) -> List[int]:
+        self._check_state_room(n)
         handles = self.alloc.branch(seq_id, n)
         for b in handles:
             self.tokens[b.seq_id] = list(self.tokens[seq_id])
+        if self.state is not None:
+            # recurrent state has no prefix sharing: every branch copies
+            # the parent's constant-size page at once
+            pages = self.state.alloc(len(handles))
+            self.state.copy_page(self.state_of[seq_id], pages)
+            for b, pg in zip(handles, pages):
+                self.state_of[b.seq_id] = pg
         return [b.seq_id for b in handles]
 
     def free(self, seq_id: int) -> None:
@@ -382,6 +461,9 @@ class PagedEngine:
         was_swapped = h.swapped if h is not None else False
         self.alloc.free_seq(seq_id)
         self.tokens.pop(seq_id, None)
+        pg = self.state_of.pop(seq_id, None)
+        if pg is not None:
+            self.state.release([pg])
         # last swapped sequence of a parked namespace gone -> its spill
         # can never be swapped back in; drop the host copy
         if was_swapped and ns not in self.alloc.swapped:
@@ -417,6 +499,14 @@ class PagedEngine:
         assert released == pages, (released, pages)
         self._spill.setdefault(ns, []).append((pages, gather))
         self._pending_spills.append(gather)
+        if self.state is not None:
+            # state pages are per-sequence exclusive: spill one page per
+            # demoted id and free it alongside the KV pages
+            spages = [self.state_of.pop(i) for i in ids]
+            sgather = self.state.gather_pages_async(spages)
+            self.state.release(spages)
+            self._state_spill.setdefault(ns, []).append((ids, sgather))
+            self._pending_spills.append(sgather)
         while len(self._pending_spills) > self._spill_buffers:
             self._pending_spills.pop(0).resolve()
         self.swapped_out_pages += len(pages)
@@ -439,6 +529,12 @@ class PagedEngine:
             return 0
         ns = self.alloc.seqs[ids[0]].ns
         segments = self._spill.get(ns, [])
+        idset = set(ids)
+        # all-or-nothing across both pools: refuse before the KV restore
+        # so everything stays parked
+        self._check_state_room(sum(
+            sum(1 for sid in seg_ids if sid in idset)
+            for seg_ids, _ in self._state_spill.get(ns, [])))
         mapping = self.alloc.swap_in_seqs(ids)     # may raise OutOfPages
         restored = 0
         for pages, gather in segments:
@@ -451,6 +547,16 @@ class PagedEngine:
                 self.pool.scatter_pages([mapping[pages[i]] for i in rows],
                                         host_k, host_v)
             restored += len(rows)
+        for seg_ids, sgather in self._state_spill.get(ns, []):
+            host = sgather.resolve()
+            rows = [j for j, sid in enumerate(seg_ids) if sid in idset]
+            if len(rows) < len(seg_ids):
+                host = {k: a[:, rows] for k, a in host.items()}
+            if rows:
+                npages = self.state.alloc(len(rows))
+                self.state.scatter_pages(npages, host)
+                for pg, j in zip(npages, rows):
+                    self.state_of[seg_ids[j]] = pg
         self._drop_spill(ns)
         self.swapped_in_pages += restored
         self.n_swap_ins += 1
@@ -459,7 +565,8 @@ class PagedEngine:
     def _drop_spill(self, ns: Optional[int]) -> None:
         """Forget a namespace's spill segments (restored or orphaned)
         and take their gathers out of the pending FIFO."""
-        for _, gather in self._spill.pop(ns, []):
+        for _, gather in self._spill.pop(ns, []) \
+                + self._state_spill.pop(ns, []):
             if gather in self._pending_spills:
                 self._pending_spills.remove(gather)
 
@@ -470,6 +577,7 @@ class PagedEngine:
         for sid in list(self.alloc.seqs):
             self.free(sid)
         self._spill.clear()
+        self._state_spill.clear()
         self._pending_spills.clear()
         self.logits_trace.clear()
 
@@ -677,9 +785,10 @@ class DecodeStream:
             eng._count_streamed_pages(live, n_logical, n_logical)
             attend = eng._paged_attend(eng._put(bt), lens_t)
         logits = eng._decode_step(eng._put(tok), lens_t, eng._put(pages),
-                                  eng._put(slots), eng._put(act), attend)
+                                  eng._put(slots), eng._put(act),
+                                  eng._state_rows(rows, B), attend)
         if ecfg.trace_logits:
-            eng.logits_trace.append(logits.cpu().numpy())
+            eng.logits_trace.append(logits.float().cpu().numpy())
         # tokens of the occupied rows, on the device (B tokens come back,
         # not B x V logits)
         occ = [j for j, i in enumerate(rows) if i is not None]

@@ -1,19 +1,39 @@
 """Per-layer-group runtimes: the engine <-> model-family contract (port
-of ``repro.serving.runtimes``, dense plan).
+of ``repro.serving.runtimes``).
 
 The engine threads the residual stream through a stack of runtimes, one
-per ``cfg.layer_plan()`` group.  This slice ports the dense GQA runtime
-(:class:`AttentionRuntime`): the per-layer math of the reference engine
-body, op by op, with the pool writes in place and the attention through
-the kernel seam (``kernels/ops.py``).  A streamed prefill segment
-attends with the plain masked attention over the history it gathers
-from the pool, as the reference does.  MoE, recurrent and hybrid
-runtimes are later slices; ``build_runtimes`` refuses them.
+per ``cfg.layer_plan()`` group:
+
+  * :class:`AttentionRuntime` — dense GQA layers: the per-layer math of
+    the reference engine body, op by op, with the pool writes in place
+    and the attention through the kernel seam (``kernels/ops.py``).  A
+    streamed prefill segment attends with the plain masked attention
+    over the history it gathers from the pool, as the reference does.
+  * :class:`MoERuntime` — the same attention, the MoE FFN.
+  * :class:`RecurrentRuntime` — mamba2 (SSD) or rwkv6 (wkv) mixers.
+    Their constant-size per-sequence state lives in a ``StatePool``, one
+    page per sequence; rows address it through ``ctx.state_rows`` (the
+    dump page for inactive rows), as KV rows address the paged pool
+    through block tables.
+  * :class:`HybridRuntime` — Zamba2 super-layers: ``attn_every`` mamba
+    mixers, then the one *shared* attention+MLP block, whose KV for
+    super-layer ``l`` lives at pool layer ``kv_offset + l``.
+
+Each runtime's ``decode_step`` / ``prefill_into_pool`` /
+``prefill_streamed`` take ``(params, x, ctx, pool_k, pool_v, state)``,
+write KV and state in place and return the residual stream.  ``state``
+is the state pool's tensors (``{name: (L, n_pages, ...)}``, empty for
+attention-only stacks).  Prefill runs the masked chunked scan (identity
+steps past ``ctx.lengths``), so a right-padded bucket leaves each row's
+exact post-prompt state; a streamed segment reads the running state from
+the pool and writes it back (a fresh page is the zero, empty-history
+state).  State is gathered and scattered one layer at a time, so no
+step holds more than one layer's state of its rows.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -21,6 +41,8 @@ from ..kernels import ops
 from ..models import attention as A
 from ..models.layers import (apply_rope, matmul, mlp_apply, rms_norm,
                              rope_angles)
+from ..models import mamba2 as M
+from ..models import rwkv6 as R
 from ..models.model import layer_slice
 
 
@@ -31,6 +53,7 @@ class DecodeCtx:
     pages: torch.Tensor     # (B,) physical write page (dump for inactive)
     slots: torch.Tensor     # (B,) in-page write slot
     attend: Callable        # attend(kv_layer, q (B,H,hd), pool_k, pool_v)
+    state_rows: Optional[torch.Tensor] = None   # (B,) state page per row
 
 
 @dataclass
@@ -39,10 +62,11 @@ class PrefillCtx:
     positions: torch.Tensor   # (B,T), -1 at padded slots
     pages: torch.Tensor       # (B,T) write pages (dump at padding)
     slots: torch.Tensor       # (B,T) write slots
-    lengths: Optional[torch.Tensor]   # (B,) valid tokens per row
+    lengths: torch.Tensor     # (B,) valid tokens per row
     hist_table: Optional[torch.Tensor] = None   # streamed: (B,Tp) block
     #                                             table, pow2 padded
     hist_len: int = 0         # streamed: tokens already in the pool
+    state_rows: Optional[torch.Tensor] = None   # (B,) state page per row
 
 
 def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
@@ -132,24 +156,54 @@ def _attn_streamed_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
     return x + ffn(blk, h)
 
 
-class AttentionRuntime:
+class LayerRuntime:
+    """One homogeneous layer group's serving behaviour.
+
+    ``n_kv_layers`` is the group's footprint in the paged KV pool's
+    layer axis (0 for recurrent groups); ``state_specs()`` declares its
+    state-pool tensors as ``name -> (n_layers, per_page_shape, dtype)``.
+    """
+
+    kind = ""
+    n_kv_layers = 0
+
+    def __init__(self, model, gi: int, count: int):
+        self.model = model
+        self.cfg = model.cfg
+        self.gi = gi
+        self.count = count
+
+    def state_specs(self) -> Dict[str, tuple]:
+        return {}
+
+    # -- recurrent-state plumbing (the stateful runtimes) --------------
+    _names: tuple = ()
+
+    def _read(self, state, l: int, rows) -> dict:
+        """Layer ``l``'s state of ``rows``: {name: (B, ...)}."""
+        return {n: state[f"{self.gi}:{n}"][l, rows] for n in self._names}
+
+    def _write(self, state, l: int, rows, new: dict) -> None:
+        for n in self._names:
+            a = state[f"{self.gi}:{n}"]
+            a[l, rows] = new[n].to(a.dtype)
+
+
+class AttentionRuntime(LayerRuntime):
     """Dense GQA layers over the paged pool, addressed at
     ``kv_offset .. kv_offset+count`` in the pool's layer axis."""
 
     kind = "attn"
 
     def __init__(self, model, gi: int, count: int, kv_offset: int):
-        self.model = model
-        self.cfg = model.cfg
-        self.gi = gi
-        self.count = count
+        super().__init__(model, gi, count)
         self.kv_offset = kv_offset
         self.n_kv_layers = count
 
     def _ffn(self, blk, h):
         return mlp_apply(blk["mlp"], h, self.cfg.act)
 
-    def decode_step(self, params, x, ctx: DecodeCtx, pool_k, pool_v):
+    def decode_step(self, params, x, ctx: DecodeCtx, pool_k, pool_v, state):
         gp = params["groups"][self.gi]
         for l in range(self.count):
             x = _attn_decode_layer(self.cfg, layer_slice(gp, l), x, ctx,
@@ -157,7 +211,8 @@ class AttentionRuntime:
                                    self._ffn)
         return x
 
-    def prefill_into_pool(self, params, x, ctx: PrefillCtx, pool_k, pool_v):
+    def prefill_into_pool(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
+                          state):
         gp = params["groups"][self.gi]
         for l in range(self.count):
             x = _attn_prefill_layer(self.cfg, layer_slice(gp, l), x, ctx,
@@ -165,7 +220,8 @@ class AttentionRuntime:
                                     self._ffn)
         return x
 
-    def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v):
+    def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
+                         state):
         hist_idx, mask = _streamed_hist(self.cfg, ctx, pool_k.shape[2])
         gp = params["groups"][self.gi]
         for l in range(self.count):
@@ -175,18 +231,155 @@ class AttentionRuntime:
         return x
 
 
+class MoERuntime(AttentionRuntime):
+    """MoE layers (mixtral, deepseek-moe): the attention and KV of
+    :class:`AttentionRuntime`, the sort-dispatch MoE FFN.  Routing is per
+    token, so one lock-step decode serves every live branch."""
+
+    kind = "moe"
+
+    def _ffn(self, blk, h):
+        return self.model.ffn(blk, h)[0]
+
+
+def _state_proto(cfg, flavor: str) -> dict:
+    if flavor == "mamba":
+        return M.init_mamba_state(cfg, 1, device="meta")
+    return R.init_rwkv_state(cfg, 1, device="meta")
+
+
+class RecurrentRuntime(LayerRuntime):
+    """mamba2 / rwkv6 layer groups: no KV pages; per-sequence constant
+    state in the state pool.  Decode runs the models' one-token step,
+    prefill the masked chunked scan, so right-padded buckets produce the
+    exact post-prompt state."""
+
+    def __init__(self, model, gi: int, count: int, flavor: str):
+        super().__init__(model, gi, count)
+        if flavor not in ("mamba", "wkv"):
+            raise ValueError(flavor)
+        self.flavor = flavor
+        self.kind = flavor
+        self._proto = _state_proto(self.cfg, flavor)
+        self._names = tuple(sorted(self._proto))
+
+    def state_specs(self):
+        return {f"{self.gi}:{n}": (self.count, tuple(v.shape[1:]), v.dtype)
+                for n, v in self._proto.items()}
+
+    def decode_step(self, params, x, ctx: DecodeCtx, pool_k, pool_v, state):
+        model = self.model
+        step = model.mamba_layer_decode if self.flavor == "mamba" \
+            else model.wkv_layer_decode
+        gp = params["groups"][self.gi]
+        rows = ctx.state_rows
+        for l in range(self.count):
+            x, new = step(layer_slice(gp, l), x, self._read(state, l, rows))
+            self._write(state, l, rows, new)
+        return x
+
+    def prefill_into_pool(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
+                          state):
+        model = self.model
+        full = model.mamba_layer_full if self.flavor == "mamba" \
+            else model.wkv_layer_full
+        gp = params["groups"][self.gi]
+        rows = ctx.state_rows
+        for l in range(self.count):
+            x, new = full(layer_slice(gp, l), x, self._read(state, l, rows),
+                          lengths=ctx.lengths)
+            self._write(state, l, rows, new)
+        return x
+
+    # a streamed segment reads the running state from the pool and
+    # writes it back — the same as a one-shot bucket (a zeroed fresh
+    # page makes segment 0 the empty-history state)
+    prefill_streamed = prefill_into_pool
+
+
+class HybridRuntime(LayerRuntime):
+    """Zamba2 super-layers: ``attn_every`` mamba mixers, then the shared
+    attention+MLP block served through the paged pool — KV pool layer
+    ``kv_offset + l`` holds super-layer ``l``'s shared-attention KV, and
+    state layer ``l * attn_every + j`` its j-th mamba mixer's state."""
+
+    kind = "hybrid"
+
+    def __init__(self, model, gi: int, count: int, kv_offset: int):
+        super().__init__(model, gi, count)
+        self.kv_offset = kv_offset
+        self.n_kv_layers = count
+        self.k_inner = self.cfg.attn_every
+        self._proto = _state_proto(self.cfg, "mamba")
+        self._names = tuple(sorted(self._proto))
+
+    def state_specs(self):
+        L = self.count * self.k_inner
+        return {f"{self.gi}:{n}": (L, tuple(v.shape[1:]), v.dtype)
+                for n, v in self._proto.items()}
+
+    def _run(self, params, x, state, rows, mamba, attn):
+        """Per super-layer: the inner mamba layers (``mamba(blk, x,
+        state) -> (x, new)``), then the shared block (``attn(blk, x,
+        kv_layer) -> x``)."""
+        gp = params["groups"][self.gi]     # leaves (count, k_inner, ...)
+        shared = params["shared_attn"]
+        for l in range(self.count):
+            blk = layer_slice(gp, l)
+            for j in range(self.k_inner):
+                sl = l * self.k_inner + j
+                x, new = mamba(layer_slice(blk, j), x,
+                               self._read(state, sl, rows))
+                self._write(state, sl, rows, new)
+            x = attn(shared, x, self.kv_offset + l)
+        return x
+
+    def _mlp(self, blk, h):
+        return mlp_apply(blk["mlp"], h, self.cfg.act)
+
+    def decode_step(self, params, x, ctx: DecodeCtx, pool_k, pool_v, state):
+        return self._run(
+            params, x, state, ctx.state_rows, self.model.mamba_layer_decode,
+            lambda b, x, kv_l: _attn_decode_layer(
+                self.cfg, b, x, ctx, kv_l, pool_k, pool_v, self._mlp))
+
+    def prefill_into_pool(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
+                          state):
+        return self._run(
+            params, x, state, ctx.state_rows,
+            lambda b, x, st: self.model.mamba_layer_full(
+                b, x, st, lengths=ctx.lengths),
+            lambda b, x, kv_l: _attn_prefill_layer(
+                self.cfg, b, x, ctx, kv_l, pool_k, pool_v, self._mlp))
+
+    def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
+                         state):
+        hist_idx, mask = _streamed_hist(self.cfg, ctx, pool_k.shape[2])
+        return self._run(
+            params, x, state, ctx.state_rows,
+            lambda b, x, st: self.model.mamba_layer_full(
+                b, x, st, lengths=ctx.lengths),
+            lambda b, x, kv_l: _attn_streamed_layer(
+                self.cfg, b, x, ctx, kv_l, pool_k, pool_v, self._mlp,
+                hist_idx, mask))
+
+
 def build_runtimes(model) -> list:
     """One runtime per ``cfg.layer_plan()`` group, with KV pool layer
     offsets assigned in plan order."""
     cfg = model.cfg
-    runtimes: list[Any] = []
+    runtimes: List[LayerRuntime] = []
     kv_offset = 0
     for gi, (kind, count) in enumerate(cfg.layer_plan()):
-        if kind != "attn" or cfg.arch_type == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} ({cfg.arch_type}) is "
-                f"served by a later slice of the port")
-        rt = AttentionRuntime(model, gi, count, kv_offset)
+        if kind == "attn":
+            cls = MoERuntime if cfg.arch_type == "moe" else AttentionRuntime
+            rt = cls(model, gi, count, kv_offset)
+        elif kind in ("wkv", "mamba"):
+            rt = RecurrentRuntime(model, gi, count, flavor=kind)
+        elif kind == "hybrid_super":
+            rt = HybridRuntime(model, gi, count, kv_offset)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
         kv_offset += rt.n_kv_layers
         runtimes.append(rt)
     return runtimes
@@ -194,3 +387,12 @@ def build_runtimes(model) -> list:
 
 def total_kv_layers(runtimes) -> int:
     return sum(rt.n_kv_layers for rt in runtimes)
+
+
+def collect_state_specs(runtimes) -> Dict[str, tuple]:
+    """Every runtime's state-pool tensors, ``name -> (n_layers,
+    per_page_shape, dtype)``."""
+    specs: Dict[str, tuple] = {}
+    for rt in runtimes:
+        specs.update(rt.state_specs())
+    return specs

@@ -1,5 +1,6 @@
 """Shared fixtures of the port's parity tests: the same tiny LM, PRM and
-embedder in both packages, on the CPU.  Params are made with numpy from
+embedder in both packages, and the tiny variants of the model families,
+on the CPU.  Params are made with numpy from
 a seed in the reference's pytree layout and scales (the tree from
 ``jax.eval_shape`` of the reference init, so nothing compiles), handed
 to ``repro`` as jnp arrays and to the port through ``repro_torch.bridge``.
@@ -13,11 +14,13 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import tiny_variant as jax_tiny_variant
 from repro.models.model import build_model as jax_build_model
 from repro.training.task import VOCAB_SIZE
 
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as torch_get_config
+from repro_torch.configs import tiny_variant as torch_tiny_variant
 from repro_torch.models.model import build_model as torch_build_model
 
 # The parity tests run at tiny sizes beside other test workers: a few
@@ -36,21 +39,55 @@ def configs(getter):
 
 
 def numpy_params(model, seed: int):
-    """Reference-layout params for ``model`` drawn with numpy."""
+    """Reference-layout params for ``model`` drawn with numpy, in the
+    reference init's scales per leaf name (every family's leaves)."""
+    return numpy_tree(model.init, seed)
+
+
+def numpy_tree(init, seed: int):
+    """The tree ``init(key)`` returns (its shapes from ``jax.eval_shape``,
+    so nothing compiles), drawn with numpy from ``seed``."""
     rng = np.random.default_rng(seed)
 
     def fill(path, sd):
         name = str(getattr(path[-1], "key", ""))
-        if name.startswith("ln") or name.endswith("_norm"):
-            x = 1.0 + 0.1 * rng.normal(size=sd.shape)
+        shape = sd.shape
+        if name.startswith("ln") or name.endswith("_norm") \
+                or name in ("norm_w", "gn_w"):
+            x = 1.0 + 0.1 * rng.normal(size=shape)
         elif name == "embed":
-            x = 0.02 * rng.normal(size=sd.shape)
+            x = 0.02 * rng.normal(size=shape)
+        elif name == "mu":                     # token-shift mix in (0, 1)
+            x = rng.uniform(0.25, 0.75, size=shape)
+        elif name == "A_log":
+            x = np.log(np.linspace(1.0, 8.0, shape[-1])) \
+                + 0.05 * rng.normal(size=shape)
+        elif name == "D":
+            x = 1.0 + 0.1 * rng.normal(size=shape)
+        elif name in ("dt_bias", "conv_b", "gn_b", "u", "conv_w"):
+            x = 0.1 * rng.normal(size=shape)
+        elif name == "w_bias":
+            x = -0.5 + 0.1 * rng.normal(size=shape)
+        elif name == "w2":                     # rwkv decay lora, scale 0.1
+            x = 0.1 * rng.normal(size=shape) / np.sqrt(shape[-2])
         else:                                  # dense: std 1/sqrt(d_in)
-            x = rng.normal(size=sd.shape) / np.sqrt(sd.shape[-2])
+            x = rng.normal(size=shape) / np.sqrt(shape[-2])
         return x.astype(np.float32)
 
-    shapes = jax.eval_shape(model.init, jax.random.key(0))
+    shapes = jax.eval_shape(init, jax.random.key(0))
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def family_models(arch: str, seed: int = 0):
+    """((jax lm, params), (torch lm, params)) of ``arch``'s tiny variant
+    (``tiny_variant`` of both registries), the same numpy params."""
+    jcfg = jax_tiny_variant(jax_get_config(arch))
+    tcfg = torch_tiny_variant(torch_get_config(arch))
+    jm = jax_build_model(jcfg, remat=False)
+    tm = torch_build_model(tcfg, device="cpu")
+    npp = numpy_params(jm, seed)
+    return ((jm, jax.tree.map(jnp.asarray, npp)),
+            (tm, params_from_jax(npp, tcfg, "cpu")))
 
 
 def make_stacks(seed: int = 0):

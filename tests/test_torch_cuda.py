@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, tiny_variant
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (flash_prefill_f64, flash_prefill_ref,
                                      paged_attention_ref, tree_attention_ref)
@@ -212,7 +212,7 @@ def test_tree_kernel_repeats_bitwise(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("hd", [32, 64, 96, 112, 128])
 @pytest.mark.parametrize("S,window", [(8, 0), (256, 0), (128, 48), (1024, 0),
                                       (2048, 0)])
 def test_flash_kernel(cuda, S, window, hd, dtype):
@@ -235,6 +235,68 @@ def test_flash_kernel(cuda, S, window, hd, dtype):
         err = float((out.double() - want).abs().max())
         err_plain = float((plain.double() - want).abs().max())
         assert err <= 2e-5 and err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(256, 0), (256, 64), (1024, 0)])
+def test_flash_kernel_zamba2_heads(cuda, S, window, dtype):
+    """zamba2-7b's shared attention block: hd 112, 32 heads over 32 kv
+    heads (G = 1); a 64-token window as mixtral's at tiny size; fp32
+    buckets of 1024 also against float64 (2e-5, and no farther than
+    twice the plain version)."""
+    q, k, v = (_rand((2, S, 32, 112), dtype, cuda) for _ in range(3))
+    scale = 112 ** -0.5
+    out = ops.flash_prefill(q, k, v, scale=scale, window=window)
+    plain = flash_prefill_ref(q, k, v, scale=scale, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    if dtype == torch.float32 and S >= 1024:
+        want = flash_prefill_f64(q, k, v, scale=scale, window=window)
+        err = float((out.double() - want).abs().max())
+        err_plain = float((plain.double() - want).abs().max())
+        assert err <= 2e-5 and err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "tree"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_zamba2_heads(cuda, kernel, dtype):
+    """The decode kernels at zamba2-7b's head shape (H = K = 32, hd 112,
+    G = 1), page size 16: the paged kernel over the long tables of the
+    split tests, the tree kernel over shared prefixes with fully masked
+    rows."""
+    H = K = 32
+    hd, S, P = 112, 16, 512
+    kp, vp = (_rand((P, S, K, hd), dtype, cuda) for _ in range(2))
+    if kernel == "paged":
+        bt, lens = _long_tables(S, P)
+        q = _rand((len(lens), H, hd), dtype, cuda)
+        args = (q, kp, vp, torch.as_tensor(bt, device=cuda),
+                torch.as_tensor(lens, device=cuda))
+        out = ops.paged_attention(*args, scale=hd ** -0.5)
+        want = paged_attention_ref(*args, scale=hd ** -0.5)
+        tol, empty = 2e-5, [2]
+    else:
+        B, n_act = 24, 16
+        tables = ([[3, 4, 9], [3, 4, 10], [3, 5], [3, 5, 11, 12]]
+                  * (n_act // 4) + [[]] * (B - n_act))
+        lengths = [40, 35, 32, 60] * (n_act // 4) + [0] * (B - n_act)
+        meta = build_tree_metadata(tables, lengths, S, pad_page=P - 1,
+                                   check=True)
+        q = _rand((B, H, hd), dtype, cuda)
+        args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
+            meta.page_list, meta.page_mask, meta.page_lens))
+        out = ops.tree_attention(*args, scale=hd ** -0.5,
+                                 n_live=meta.n_unique)
+        want = tree_attention_ref(*args, scale=hd ** -0.5)
+        tol, empty = 3e-5, list(range(n_act, B))
+    # bf16: both sides compute in fp32 and round once to bf16
+    rtol = 0.0 if dtype == torch.float32 else 2 * 2 ** -7
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=tol)
+    assert torch.all(out[empty] == 0)
 
 
 @pytest.mark.cuda
@@ -374,6 +436,48 @@ def test_engine_on_card_matches_cpu(cuda, mode):
                      e.decode(ids, 6, key=3, temperature=1.0)))
     assert outs[0][0] == outs[1][0]
     assert outs[0][2] == outs[1][2]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+    kernel = ops.PAGED if mode == "paged" else ops.TREE
+    assert kernel.launches > 0 and ops.FLASH.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "deepseek-moe-16b"])
+def test_family_engine_on_card_matches_cpu(cuda, arch, mode):
+    """Tiny zamba2 (hybrid: mamba state pages + the shared attention
+    block) and tiny deepseek-moe engines on the card against the same
+    engines on the CPU: same greedy tokens after a branch, close logits,
+    the kernels of the path launched, state pages bitwise preserved by a
+    swap round trip."""
+    cfg = tiny_variant(get_config(arch))
+    lm_cpu = build_model(cfg, device="cpu")
+    params = lm_cpu.init(torch.Generator().manual_seed(0))
+    ecfg = EngineConfig(n_pages=64, page_size=8, max_batch=8,
+                        max_seq_len=64, attention=mode, trace_logits=True)
+    prompts = [list(map(int, RNG.integers(0, cfg.vocab_size, n)))
+               for n in (13, 6, 21)]
+    outs = []
+    ops.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        lm = build_model(cfg, device=dev)
+        e = PagedEngine(lm, tree_map(lambda a: a.to(dev), params), ecfg,
+                        device=dev)
+        sids = e.prefill_many(prompts)
+        ids = e.branch(sids[0], 3) + e.branch(sids[2], 2)
+        out = e.decode(ids, 6, key=0, temperature=0.0)
+        if e.state is not None:
+            before = {n: a.clone() for n, a in e.state.arrays.items()}
+            pages = [e.state_of[i] for i in ids]
+            e.swap_out(sids[:1] + ids[:3])
+            e.swap_in(sids[:1] + ids[:3])
+            for n, a in e.state.arrays.items():
+                got = a[:, [e.state_of[i] for i in ids]]
+                assert torch.equal(got, before[n][:, pages])
+        outs.append((out, e.logits_trace,
+                     e.decode(ids, 4, key=0, temperature=0.0)))
+    assert outs[0][0] == outs[1][0] and outs[0][2] == outs[1][2]
     for a, b in zip(outs[0][1], outs[1][1]):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
     kernel = ops.PAGED if mode == "paged" else ops.TREE

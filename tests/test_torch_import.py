@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, tiny_variant
 from repro_torch.models.model import build_model
 from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
                                  PagedEngine)
@@ -29,7 +29,9 @@ SUBMODULES = [
     "repro_torch.kernels.build", "repro_torch.kernels.ops",
     "repro_torch.kernels.ref", "repro_torch.models",
     "repro_torch.models.layers", "repro_torch.models.attention",
-    "repro_torch.models.model", "repro_torch.serving",
+    "repro_torch.models.model", "repro_torch.models.mamba2",
+    "repro_torch.models.rwkv6", "repro_torch.models.moe",
+    "repro_torch.serving",
     "repro_torch.serving.engine", "repro_torch.serving.runtimes",
     "repro_torch.serving.sampler", "repro_torch.serving.search_backend",
     "repro_torch.core.synthetic", "repro_torch.core.costsim",
@@ -110,14 +112,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_slice_boundaries_raise_not_implemented():
-    """What the port leaves out raises instead of running wrong; what
-    this slice added (streamed prefill, swap) no longer raises."""
+    """What the port leaves out raises instead of running wrong (the VLM
+    family, the families' training loss, replicas); what earlier slices
+    added (streamed prefill, swap, the MoE family) no longer raises."""
     from repro_torch.core import SearchConfig
     from repro_torch.core.serving import ReplicaServingLoop
     with pytest.raises(NotImplementedError):
         build_model(get_config("tiny-lm").__class__(
-            name="moe-x", arch_type="moe", n_layers=1, d_model=32,
+            name="vlm-x", arch_type="vlm", n_layers=1, d_model=32,
             n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=16), device="cpu")
+    moe = build_model(tiny_variant(get_config("deepseek-moe-16b")),
+                      device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        moe.loss(moe.init(torch.Generator().manual_seed(0)),
+                 {"tokens": toks, "labels": toks})
     with pytest.raises(NotImplementedError, match="replicas"):
         ReplicaServingLoop([], SearchConfig(), [])
     with pytest.raises(ValueError, match="at least one pool page"):

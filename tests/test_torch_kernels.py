@@ -338,3 +338,48 @@ def test_kernel_sources_name_the_pallas_kernel_they_replace():
         pallas = k.replaces.split(":")[0]
         assert pallas.replace("src/", "") in src or pallas in src, k.name
         assert "Bound on the H100" in src
+
+
+@pytest.mark.parametrize("kernel", ["paged", "tree", "flash"])
+def test_plain_matches_pallas_at_zamba2_heads(kernel):
+    """zamba2-7b's shared attention block at a small size: hd 112 and
+    G = 1 (as many kv heads as query heads), the head shape the hybrid
+    family gives all three kernels."""
+    rng = np.random.default_rng(112)
+    H = K = 4
+    hd = 112
+
+    def rand(shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return jnp.asarray(x), torch.as_tensor(x)
+
+    if kernel == "flash":
+        (jq, tq), (jk, tk), (jv, tv) = (rand((2, 128, H, hd)) for _ in
+                                        range(3))
+        for window in (0, 48):
+            out = jax_flash(jq, jk, jv, scale=hd ** -0.5, window=window,
+                            block_q=64, block_k=64, interpret=True)
+            _close(out, flash_prefill_ref(tq, tk, tv, scale=hd ** -0.5,
+                                          window=window), 2e-5)
+        return
+    S, P = 16, 16
+    (jk, tk), (jv, tv), (jq, tq) = (rand((P, S, K, hd)), rand((P, S, K, hd)),
+                                    rand((3, H, hd)))
+    if kernel == "paged":
+        bt = np.asarray([[2, 5, -1], [7, -1, -1], [1, 3, 9]], np.int32)
+        lens = np.asarray([20, 16, 40], np.int32)
+        (jbt, tbt), (jl, tl) = _ints(bt), _ints(lens)
+        out = jax_paged(jq, jk, jv, jbt, jl, scale=hd ** -0.5,
+                        interpret=True)
+        _close(out, paged_attention_ref(tq, tk, tv, tbt, tl,
+                                        scale=hd ** -0.5), 2e-5)
+    else:
+        meta = build_tree_metadata([[3, 4], [3, 5], [3, 6, 7]],
+                                   [30, 27, 40], S, pad_page=P - 1,
+                                   check=True)
+        ints = [_ints(a) for a in (meta.page_list, meta.page_mask,
+                                   meta.page_lens)]
+        out = jax_tree(jq, jk, jv, *(j for j, _ in ints), scale=hd ** -0.5,
+                       interpret=True)
+        _close(out, tree_attention_ref(tq, tk, tv, *(t for _, t in ints),
+                                       scale=hd ** -0.5), 3e-5)

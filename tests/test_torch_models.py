@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_stack import make_stacks
+from _torch_stack import family_models, make_stacks
 
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as JA
@@ -196,3 +196,40 @@ def test_init_matches_reference_shapes(stacks):
     assert abs(float(tp["embed"].std()) - 0.02) < 2e-3
     w_up = tp["groups"][0]["mlp"]["w_up"]
     assert abs(float(w_up.std()) * tlm.cfg.d_model ** 0.5 - 1.0) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# Every registered family at tiny size
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ["phi3-mini-3.8b", "qwen3-14b", "yi-6b", "llemma-34b"]
+FAMILY_ARCHS = ["mixtral-8x7b", "deepseek-moe-16b", "mamba2-370m",
+                "rwkv6-7b", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_tiny_dense_variant_forward(arch):
+    """The dense configs the engine's attention runtime serves (qk-norm,
+    GQA ratios, rope thetas), at their tiny variants: same logits."""
+    (jlm, jp), (tlm, tp) = family_models(arch, seed=5)
+    toks, _ = _batch(2, 11, jlm.cfg.vocab_size, pad=False)
+    jl, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, _ = tlm.forward(tp, {"tokens": torch.as_tensor(toks)})
+    _close(jl, tl, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_tiny_family_forward_and_init(arch):
+    """MoE, SSM and hybrid forwards (full-sequence scans from zero state,
+    the shared attention block, the MoE aux loss) against the reference
+    at the mixer tolerance (2e-4), and the port init's tree and shapes
+    against the reference init's."""
+    (jlm, jp), (tlm, tp) = family_models(arch, seed=6)
+    toks, _ = _batch(2, 40, jlm.cfg.vocab_size, pad=False)
+    jl, jaux = jlm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, taux = tlm.forward(tp, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    init = tlm.init(torch.Generator().manual_seed(0))
+    assert _shapes(init) == _shapes(jp)
