@@ -20,8 +20,9 @@ exits non-zero):
                ``PAGED_PAGES_PER_SPLIT``, tree batches of 48 and 160
                leaves (the latter in leaf chunks), prefill at hd 128,
                float32 and bfloat16; all three at zamba2-7b's head shape
-               (hd 112, G 1), flash also with a 64-token window and on
-               a 1024-token float32 bucket against float64; prefill
+               (hd 112, G 1) and at qwen2-vl-7b's (hd 128, G 7), flash
+               also with a 64-token window and on 1024-token float32
+               buckets against float64; prefill
                buckets of 1024 and 2048 tokens (float32, hd 64 and 128)
                also against float64,
                once more with q and k scaled 3x (held to float64 only:
@@ -95,7 +96,27 @@ exits non-zero):
                over the phase's base; for zamba2 a swap round whose KV
                and state pages come back bitwise; each path's largest
                kernel calls held against their plain versions;
- 14. replay  — each kernel against its plain version on the largest
+ 14. vlm     — qwen2-vl-7b at full width and depth (28 layers, hd 128,
+               28 query heads over 4 kv heads: G 7; PRM a text model of
+               the same width at 6 layers): the families phase's greedy
+               sweep in paged and tree mode, equal trees, every kernel
+               launched, the tree kernel's leaf chunks and the K/V bytes
+               its split pass streams, each kernel's largest call timed;
+ 15. vlm_frontend — ``LM.forward`` of qwen2-vl-7b at full width, 2
+               layers, float32: 64 patch embeds (frontend_dim 1280, an
+               8 x 8 grid with distinct t/h/w streams) before 64 text
+               tokens, the card's logits against the CPU's (1e-4);
+ 16. hubert  — hubert-xlarge at full width and depth (48 layers, frames
+               of dim 512): ``hidden`` and ``forward`` on 4 x 500
+               frames, the engine refusing the encoder, 2 layers in
+               float32 against the CPU (1e-4); no kernel runs;
+ 17. replicas — (after serving) 2 engine replicas of the main path's
+               models on the card: ``run_search_many`` over 8 prompts
+               gives the one-replica trees, greedy and sampled;
+               ``ReplicaServingLoop`` serves the serving phase's trace
+               with every page back; (after serve)
+               ``launch.serve --replicas 2`` runs to its end;
+ 18. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
@@ -112,9 +133,11 @@ ran against its plain version; every flash call on a float32 bucket of
 to the same function in float64 (``ORACLE_RATIO``).  Then the kernels
 line ``{"kernels": [...]}`` (``launches``: the sum over the paths
 driven with the counts zeroed just before each — the main sweep in both
-modes, streamed, swap, both serving runs, train, example, serve and
-each family's sweeps and swap round —
-``launches_by_path`` each path's) and, last, the device line.
+modes, streamed, swap, both serving runs, the replica runs, train,
+example, serve, each family's sweeps and swap round, the VLM's sweeps,
+its forward and hubert's —
+``launches_by_path`` each path's) and, last, the device line.  After
+each phase a ``seconds`` line gives its wall time.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -560,6 +583,7 @@ def phase_parity(torch, np):
               ref.flash_prefill_ref(*a, scale=scale, window=48),
               "causal, window 48, S=128")
         phase_parity_zamba2(torch, np, rng, dt)
+        phase_parity_qwen2_vl(torch, np, rng, dt)
 
 
 def phase_parity_zamba2(torch, np, rng, dt):
@@ -591,6 +615,48 @@ def phase_parity_zamba2(torch, np, rng, dt):
         check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
               ref.flash_prefill_ref(*a, scale=sc),
               f"hd 112, G 1, causal, S={LONG_BUCKET}, long bucket",
+              oracle=ref.flash_prefill_f64(*a, scale=sc))
+        del a
+        torch.cuda.empty_cache()
+
+
+def phase_parity_qwen2_vl(torch, np, rng, dt):
+    """The three kernels at qwen2-vl-7b's head shape: 28 query heads over
+    4 kv heads (G = 7, odd and not a power of two), hd 128: the paged
+    kernel over ragged and 160-page tables, the tree kernel over 32 rows
+    (in float32 their state needs two leaf chunks), flash on a bucket
+    that is not a multiple of the tile and on the sweep's, and a float32
+    bucket of 1024 tokens against float64."""
+    from repro_torch.kernels import ops, ref
+    hd = 128
+    sc = hd ** -0.5
+    head = dict(H=28, K=4, hd=hd)
+    a = paged_inputs(torch, np, rng, dt, **head)
+    check("paged_attention", dt, ops.paged_attention(*a, scale=sc),
+          ref.paged_attention_ref(*a, scale=sc),
+          "hd 128, G 7, ragged, -1 padded, one zero-length row",
+          bf16_rounded=True)
+    a = paged_long_inputs(torch, np, rng, dt, **head)
+    check("paged_attention", dt, ops.paged_attention(*a, scale=sc),
+          ref.paged_attention_ref(*a, scale=sc),
+          "hd 128, G 7, 160-page tables, -1 holes, shared prefix",
+          bf16_rounded=True)
+    a = tree_inputs(torch, np, rng, dt, B=32, problems=4, **head)
+    lb = ops.tree_leaves_per_cta(a[0], a[1], a[3].shape[0])
+    check("tree_attention", dt, ops.tree_attention(*a, scale=sc),
+          ref.tree_attention_ref(*a, scale=sc),
+          f"hd 128, G 7, B=32 ({lb} leaves per CTA), shared prefixes, "
+          f"dump entries", bf16_rounded=True)
+    for S in (100, 256):
+        a = flash_inputs(torch, rng, dt, B=2, S=S, **head)
+        check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
+              ref.flash_prefill_ref(*a, scale=sc),
+              f"hd 128, G 7, causal, S={S}")
+    if dt == torch.float32:
+        a = flash_inputs(torch, rng, dt, B=2, S=LONG_BUCKET, **head)
+        check("flash_prefill", dt, ops.flash_prefill(*a, scale=sc),
+              ref.flash_prefill_ref(*a, scale=sc),
+              f"hd 128, G 7, causal, S={LONG_BUCKET}, long bucket",
               oracle=ref.flash_prefill_f64(*a, scale=sc))
         del a
         torch.cuda.empty_cache()
@@ -668,6 +734,22 @@ def check_recorded(recorder, path):
               if name == "flash_prefill" else None)
 
 
+def make_backend(models, dev, ecfg=None, bcfg=None):
+    """An ``LMBackend`` over ``models`` with its own engine: the main
+    path's engine and backend configs, ``ecfg`` / ``bcfg`` overriding
+    their fields."""
+    from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
+                                     PagedEngine)
+    (lm, lp), (prm, pp), (emb, ep) = models
+    engine = PagedEngine(lm, lp, EngineConfig(**dict(
+        dict(n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
+             attention="tree"), **(ecfg or {}))), device=dev)
+    return LMBackend(engine, prm, pp, emb, ep, BackendConfig(**dict(
+        dict(step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
+             max_step_tokens=32, max_depth=8, temperature=0.0),
+        **(bcfg or {}))), answer_fn=lambda toks: None, device=dev)
+
+
 def run_mode(torch, np, mode, models, prompts, recorder=None,
              temperature=0.0, max_steps=3, phase="main", ecfg_over=None,
              bcfg_over=None, info_over=None, dev="cuda"):
@@ -679,17 +761,10 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
     keys to the printed line."""
     from repro_torch.core import ETSConfig, SearchConfig, run_search_many
     from repro_torch.kernels import ops
-    from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
-                                     PagedEngine)
-    (lm, lp), (prm, pp), (emb, ep) = models
-    engine = PagedEngine(lm, lp, EngineConfig(**dict(
-        dict(n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
-             attention=mode, trace_logits=temperature <= 0),
-        **(ecfg_over or {}))), device=dev)
-    backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(**dict(
-        dict(step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
-             max_step_tokens=32, max_depth=8, temperature=temperature),
-        **(bcfg_over or {}))), answer_fn=lambda toks: None, device=dev)
+    backend = make_backend(models, dev, dict(
+        attention=mode, trace_logits=temperature <= 0, **(ecfg_over or {})),
+        dict(temperature=temperature, **(bcfg_over or {})))
+    engine = backend.engine
     scfg = SearchConfig(method="ets", width=8, max_steps=max_steps,
                         ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
                                       cluster_threshold=0.2))
@@ -909,6 +984,30 @@ WORK = {"paged_attention": paged_work, "tree_attention": tree_work,
         "flash_prefill": flash_work}
 
 
+def tree_chunks(ops, args, kw):
+    """How the tree kernel cut a call's batch (``ops.tree_leaves_per_cta``)
+    and the K/V bytes its split pass then streams: each leaf chunk reads
+    the pages some leaf of the chunk needs, so a page shared across
+    chunks is read once per chunk (``kv_bytes_read``), against
+    ``kv_bytes_once`` when every unique page is read once.  None on the
+    CPU (the plain version runs there)."""
+    q, kp, _, pl, pm, plen = args
+    if not q.is_cuda:
+        return None
+    n = kw.get("n_live")
+    lb = ops.tree_leaves_per_cta(q, kp, pl.shape[0] if n is None else n,
+                                 pages_per_split=kw.get("pages_per_split"))
+    B = q.shape[0]
+    mask = pm.cpu().numpy().astype(bool)
+    lens = plen.cpu().numpy().astype(np.int64)
+    slot = kp.shape[2] * kp.shape[3] * 2 * kp.element_size()
+    read = sum(int(lens[mask[:, c:c + lb].any(axis=1)].sum())
+               for c in range(0, B, lb))
+    return {"rows": B, "leaves_per_cta": lb, "leaf_chunks": -(-B // lb),
+            "kv_bytes_once": int(lens[mask.any(axis=1)].sum()) * slot,
+            "kv_bytes_read": read * slot}
+
+
 def replay_call(torch, name, args, kw, fn, timer, case):
     """One recorded call of kernel ``name`` (wrapper ``fn``) held against
     its plain version and timed: kernel ``ms`` / ``device_ms``, the
@@ -932,6 +1031,9 @@ def replay_call(torch, name, args, kw, fn, timer, case):
     out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops,
                                                 args[0].dtype)
     out.update(bytes=nbytes, flops=flops)
+    if name == "tree_attention":
+        from repro_torch.kernels import ops
+        out["tree_leaf_chunks"] = tree_chunks(ops, args, kw)
     return out
 
 
@@ -1454,6 +1556,14 @@ def serving_prompts(long_prompt):
     return short[:2] + [long_prompt] + short[2:]
 
 
+def serving_ecfg(prompts, n_pages=SERVING_PAGES):
+    """The serving runs' engine: ``n_pages`` pages, room for the longest
+    prompt and its search, long prompts streamed."""
+    return dict(n_pages=n_pages, attention="tree",
+                max_seq_len=max(len(p) for p in prompts) + 256,
+                prefill_chunk_tokens=PREFILL_CHUNK)
+
+
 def run_serving(torch, models, prompts, costs, refill, dev="cuda",
                 n_pages=SERVING_PAGES, recorder=None):
     """Serve ``prompts`` as Poisson requests through ``ServingLoop`` on a
@@ -1462,17 +1572,8 @@ def run_serving(torch, models, prompts, costs, refill, dev="cuda",
     from repro_torch.core import (ETSConfig, SearchConfig, ServingConfig,
                                   ServingLoop, poisson_requests)
     from repro_torch.kernels import ops
-    from repro_torch.serving import (BackendConfig, EngineConfig, LMBackend,
-                                     PagedEngine)
-    (lm, lp), (prm, pp), (emb, ep) = models
-    engine = PagedEngine(lm, lp, EngineConfig(
-        n_pages=n_pages, page_size=16, max_batch=32,
-        max_seq_len=max(len(p) for p in prompts) + 256, attention="tree",
-        prefill_chunk_tokens=PREFILL_CHUNK), device=dev)
-    backend = LMBackend(engine, prm, pp, emb, ep, BackendConfig(
-        step_token=LLAMA_VOCAB_NEWLINE, eos_token=LLAMA_VOCAB_EOS,
-        max_step_tokens=32, max_depth=8, temperature=0.0),
-        answer_fn=lambda toks: None, device=dev)
+    backend = make_backend(models, dev, serving_ecfg(prompts, n_pages))
+    engine = backend.engine
     scfg = SearchConfig(method="ets", width=8, max_steps=3,
                         ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
                                       cluster_threshold=0.2))
@@ -1494,7 +1595,8 @@ def run_serving(torch, models, prompts, costs, refill, dev="cuda",
 def phase_serving(torch, models, long_prompt, smi, dev="cuda"):
     """Requests arriving over time at a server whose pool is too small:
     refill, then lock-step; every request finishes, problems are demoted
-    to pinned host memory and restored, the pool drains."""
+    to pinned host memory and restored, the pool drains.  Returns the
+    launches and the measured stage costs."""
     costs = measure_stage_costs(torch, models, long_prompt[:256], dev)
     prompts = serving_prompts(long_prompt)
     emit({"phase": "stage_costs", "nvidia_smi": smi, **costs})
@@ -1552,7 +1654,7 @@ def phase_serving(torch, models, long_prompt, smi, dev="cuda"):
           "token_agreement": agree,
           "first_disagreement": first,
           "p99_tta": {n: runs[n][2]["p99_tta"] for n in runs}})
-    return total
+    return total, costs
 
 
 # ---------------------------------------------------------------------------
@@ -1776,55 +1878,66 @@ def phase_example(torch, smi, dev="cuda", argv=()):
     return launches
 
 
-def phase_serve(torch, smi, dev="cuda", argv=()):
+def phase_serve(torch, smi, dev="cuda", argv=(), path="serve"):
     """``repro_torch.launch.serve``'s main path on ``dev``: a tiny LM +
     PRM trained 100 steps, 8 Poisson requests served in tree mode (page
-    size 8, G = 2); ``argv`` adds to the arguments."""
+    size 8, G = 2); ``argv`` adds to the arguments (``--replicas 2``:
+    one arrival stream over two engines, ``path`` then names it)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     base = fresh_peak(torch, dev)
     recorder = Recorder(ops)
     ops.reset_launch_counts()
     loop_s = []
-    orig_run = serve.ServingLoop.run
+    loops = (serve.ServingLoop, serve.ReplicaServingLoop)
+    orig_runs = [cls.run for cls in loops]
 
-    def timed_run(loop):
-        out, secs = timed_s(torch, dev, lambda: orig_run(loop))
-        loop_s.append(secs)
-        return out
+    def timed(orig):
+        def run(loop):
+            out, secs = timed_s(torch, dev, lambda: orig(loop))
+            loop_s.append(secs)
+            return out
+        return run
 
-    serve.ServingLoop.run = timed_run
+    for cls, orig in zip(loops, orig_runs):
+        cls.run = timed(orig)
     try:
         with recorder:
             out, wall = timed_s(torch, dev, lambda: serve.main(
                 ["--requests", "8", "--train-steps", "100", "--device",
                  str(dev), *argv]))
     finally:
-        serve.ServingLoop.run = orig_run
+        for cls, orig in zip(loops, orig_runs):
+            cls.run = orig
     launches = launch_counts(ops)
-    engine = out["backend"].engine
+    engines = [b.engine for b in out["backends"]]
     rep, results, answers = out["report"], out["results"], out["answers"]
     acc = sum(int(r.answer == a) for r, a in zip(results, answers)) \
         / len(answers)
-    emit({"phase": "serve", "nvidia_smi": smi, "requests": len(answers),
+    emit({"phase": "serve", "path": path, "nvidia_smi": smi,
+          "requests": len(answers), "replicas": len(engines),
           "slo": rep, "accuracy": acc, "wall_s": wall,
           "serve_wall_s": loop_s[0],
-          "decoded_tokens": engine.n_decoded_tokens,
-          "decode_steps": engine.n_decode_steps,
-          "unique_pages_streamed": engine.unique_pages_streamed,
-          "logical_pages_streamed": engine.logical_pages_streamed,
+          "routed": getattr(out["loop"], "routed", None),
+          "decoded_tokens": [e.n_decoded_tokens for e in engines],
+          "decode_steps": [e.n_decode_steps for e in engines],
+          "unique_pages_streamed": [e.unique_pages_streamed
+                                    for e in engines],
+          "logical_pages_streamed": [e.logical_pages_streamed
+                                     for e in engines],
           "memory_allocated_at_start": base,
           "max_memory_allocated": peak_bytes(torch, dev),
           "launches": launches})
     if len(results) != 8 or rep["n_finished"] != 8:
-        fail(f"serve: {rep['n_finished']} of 8 requests finished")
-    if engine.alloc.used_pages or engine.alloc.swapped_pages:
-        fail(f"serve: {engine.alloc.used_pages} pages held and "
-             f"{engine.alloc.swapped_pages} parked at the end")
-    engine.alloc.check_invariants()
+        fail(f"{path}: {rep['n_finished']} of 8 requests finished")
+    for e in engines:
+        if e.alloc.used_pages or e.alloc.swapped_pages:
+            fail(f"{path}: {e.alloc.used_pages} pages held and "
+                 f"{e.alloc.swapped_pages} parked at the end")
+        e.alloc.check_invariants()
     if not (launches["tree_attention"] and launches["flash_prefill"]):
-        fail(f"serve: a kernel of the path did not launch: {launches}")
-    check_recorded(recorder, "serve")
+        fail(f"{path}: a kernel of the path did not launch: {launches}")
+    check_recorded(recorder, path)
     return launches
 
 
@@ -1855,7 +1968,8 @@ TOL_FAMILY_REWARD = 1e-5
 def family_models(torch, arch, n_layers, prm_layers, dev, shrink=None):
     """(LM, PRM, embedder) of ``arch`` with random weights from seeds:
     the LM at ``n_layers`` (None = all), the PRM at ``prm_layers`` with
-    a value head, ``tiny-embedder`` at the family's vocab.  ``shrink``
+    a value head (for the VLM a text model of the same width),
+    ``tiny-embedder`` at the family's vocab.  ``shrink``
     (a config -> config map) cuts width too, for a rehearsal on the CPU.
     The PRM's float32 masters are dropped once cast (``LMBackend``
     keeps only its compute-type copy)."""
@@ -1866,6 +1980,11 @@ def family_models(torch, arch, n_layers, prm_layers, dev, shrink=None):
     cfg = shrink(dataclasses.replace(full, n_layers=n_layers or
                                      full.n_layers))
     prm_cfg = shrink(dataclasses.replace(full, n_layers=prm_layers))
+    if prm_cfg.arch_type == "vlm":
+        # the backend scores text with (B,S) positions: a text PRM of the
+        # same width (three equal M-RoPE streams are plain RoPE)
+        prm_cfg = dataclasses.replace(prm_cfg, arch_type="dense",
+                                      mrope_sections=(), frontend_dim=0)
     emb_cfg = dataclasses.replace(get_config("tiny-embedder"),
                                   vocab_size=cfg.vocab_size)
     models = []
@@ -1968,27 +2087,29 @@ def family_swap_round(torch, models, prompt, smi, dev):
 
 
 def family_run(torch, np, arch, n_layers, prm_layers, why, smi, dev,
-               shrink=None, timer=None):
+               shrink=None, timer=None, path=None):
     """One family: greedy ETS over 4 seeded prompts (width 8, 3 steps,
     32 tokens per step) in paged and, where the model has attention, in
     tree mode; the two trees must be equal.  Returns the path's launches
     and prints one ``families`` line per mode and a summary; with a
     ``timer``, the path's largest kernel calls are timed beside their
-    bounds (``families_replay`` lines)."""
+    bounds (``families_replay`` lines).  ``path`` names the path in
+    ``launches_by_path`` (default ``families:<arch>``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    path = path or f"families:{arch}"
     base = fresh_peak(torch, dev)
     models = family_models(torch, arch, n_layers, prm_layers, dev, shrink)
     (lm, lp), (prm, pp), (emb, ep) = models
     cfg = lm.cfg
-    emit({"phase": "families_model", "arch": arch,
+    emit({"phase": "families_model", "arch": arch, "path": path,
           "n_layers": cfg.n_layers, "n_layers_full": get_config(arch).n_layers,
           "depth_cut": why, "d_model": cfg.d_model,
           "head_dim": cfg.head_dim, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
           "dtype": cfg.dtype, "lm_params": param_count(lp),
           "prm_layers": prm.cfg.n_layers, "prm_params": param_count(pp),
-          "plan": cfg.layer_plan()})
+          "prm_arch_type": prm.cfg.arch_type, "plan": cfg.layer_plan()})
     rng = np.random.default_rng(0)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
                for n in rng.integers(128, 257, 4)]
@@ -2010,12 +2131,13 @@ def family_run(torch, np, arch, n_layers, prm_layers, why, smi, dev,
         res, _, l_m, info = run_mode(
             torch, np, mode, models, prompts, recorder, phase="families",
             ecfg_over=ecfg_over, bcfg_over=bcfg_over,
-            info_over={"arch": arch, "nvidia_smi": smi}, dev=dev)
+            info_over={"arch": arch, "path": path, "nvidia_smi": smi},
+            dev=dev)
         runs[mode] = (res, l_m, info)
         for k, v in l_m.items():
             launches[k] += v
-    summary = {"phase": "families_summary", "arch": arch, "modes": modes,
-               "launches": launches}
+    summary = {"phase": "families_summary", "arch": arch, "path": path,
+               "modes": modes, "launches": launches}
     if "tree" in runs:
         same, worst = same_trees(runs["paged"][0], runs["tree"][0])
         summary.update(same_tree=same, max_reward_rel_gap=worst,
@@ -2037,14 +2159,14 @@ def family_run(torch, np, arch, n_layers, prm_layers, why, smi, dev,
     summary["memory_allocated_at_phase_start"] = base
     emit(summary)
     if recorder.best:
-        check_recorded(recorder, f"families:{arch}")
+        check_recorded(recorder, path)
     for name, (_, args, kw) in sorted(recorder.best.items()):
         if timer is not None:
-            emit({"phase": "families_replay", "path": f"families:{arch}",
+            emit({"phase": "families_replay", "path": path,
                   "kernel": name, "shapes": [list(a.shape) for a in args],
                   "dtype": str(args[0].dtype), "nvidia_smi": smi,
                   **replay_call(torch, name, args, kw, recorder.orig[name],
-                                timer, f"the families:{arch} path's "
+                                timer, f"the {path} path's "
                                 f"largest call, timed")})
     del models, lm, lp, prm, pp, emb, ep, runs, recorder
     fresh_peak(torch, dev)
@@ -2065,6 +2187,326 @@ def phase_families(torch, np, smi, dev="cuda", shrink=None, timer=None):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the VLM, the audio encoder, engine replicas
+# ---------------------------------------------------------------------------
+
+# qwen2-vl-7b's frontend: an 8 x 8 grid of patch embeds (frontend_dim
+# 1280) before 64 text tokens, at 2 of its 28 layers in float32, on the
+# card and on the CPU (bf16 GEMMs round differently on the two)
+VLM_FRONTEND_LAYERS = 2
+VLM_GRID = 8
+VLM_TEXT = 64
+TOL_FRONTEND = 1e-4      # logits of |x| ~ 5, float32 summed in two orders
+# the position streams must matter: logits with flat positions differ
+MIN_MROPE_EFFECT = 1e-3
+# hubert-xlarge: 4 clips of 500 frames (10 s of audio at 50 frames per
+# second) at full depth; 2 clips of 200 frames at 2 layers in float32,
+# card against CPU
+HUBERT_BATCH, HUBERT_FRAMES = 4, 500
+HUBERT_CPU_LAYERS = 2
+TOL_HUBERT = 1e-4
+REPLICAS = 2
+REPLICA_PROMPTS = 8
+TOL_REPLICA_REWARD = 1e-5
+
+
+def vlm_frontend_batch(torch, cfg, dev):
+    """Patch embeds of a ``VLM_GRID`` x ``VLM_GRID`` image before
+    ``VLM_TEXT`` text tokens, with M-RoPE positions: t = 0 and (h, w)
+    the grid cell over the patches, all three streams counting on from
+    the grid's side over the text."""
+    rng = np.random.default_rng(4)
+    n_patch = VLM_GRID * VLM_GRID
+    embeds = rng.normal(size=(1, n_patch, cfg.frontend_dim))
+    toks = rng.integers(0, cfg.vocab_size, (1, VLM_TEXT))
+    grid = np.arange(VLM_GRID)
+    text = np.arange(VLM_GRID, VLM_GRID + VLM_TEXT)
+    streams = (np.zeros(n_patch), np.repeat(grid, VLM_GRID),
+               np.tile(grid, VLM_GRID))
+    pos = np.stack([np.concatenate([x, text]) for x in streams])[:, None]
+    return {"embeds": torch.as_tensor(embeds, dtype=torch.float32,
+                                      device=dev),
+            "tokens": torch.as_tensor(toks, device=dev),
+            "positions": torch.as_tensor(pos, dtype=torch.int32,
+                                         device=dev)}
+
+
+def phase_vlm_frontend(torch, np, smi, dev="cuda", cpu="cpu", shrink=None):
+    """``LM.forward`` of qwen2-vl-7b at full width, cut to
+    ``VLM_FRONTEND_LAYERS`` layers in float32, on patch embeds with
+    distinct t/h/w streams before text: the card's logits against the
+    port's CPU run of the same params (``TOL_FRONTEND``), and against
+    flat positions (the streams must change the logits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, tree_map
+    full = get_config("qwen2-vl-7b")
+    cfg = (shrink or (lambda c: c))(dataclasses.replace(
+        full, n_layers=VLM_FRONTEND_LAYERS, dtype="float32"))
+    base = fresh_peak(torch, dev)
+    lm = build_model(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(110))
+    batch = vlm_frontend_batch(torch, cfg, dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lm.forward(params, batch)                  # warm-up
+        (logits, _), card_s = timed_s(torch, dev,
+                                      lambda: lm.forward(params, batch))
+        launches = launch_counts(ops)
+        flat = dict(batch)
+        flat.pop("positions")
+        flat_logits, _ = lm.forward(params, flat)
+        peak = peak_bytes(torch, dev)
+        lm_cpu = build_model(cfg, device=cpu)
+        p_cpu = tree_map(lambda a: a.to(cpu), params)
+        b_cpu = {k: v.to(cpu) for k, v in batch.items()}
+        (want, _), cpu_s = timed_s(torch, cpu,
+                                   lambda: lm_cpu.forward(p_cpu, b_cpu))
+    got = logits.cpu()
+    diff = float((got - want).abs().max())
+    effect = float((flat_logits - logits).abs().max())
+    S = VLM_GRID * VLM_GRID + VLM_TEXT
+    line = {"phase": "vlm_frontend", "nvidia_smi": smi, "arch": full.name,
+            "n_layers": cfg.n_layers, "n_layers_full": full.n_layers,
+            "depth_cut": "the CPU oracle: 2 full-width layers hold every "
+                         "op of the frontend and M-RoPE path",
+            "dtype": cfg.dtype, "d_model": cfg.d_model,
+            "frontend_dim": cfg.frontend_dim,
+            "mrope_sections": list(cfg.mrope_sections),
+            "patches": [VLM_GRID, VLM_GRID], "text_tokens": VLM_TEXT,
+            "logits_shape": list(got.shape),
+            "finite": bool(torch.isfinite(got).all()),
+            "max_abs_logit_diff_cpu": diff,
+            "max_abs_logit": float(want.abs().max()), "tol": TOL_FRONTEND,
+            "max_abs_logit_change_flat_positions": effect,
+            "card_s": card_s, "cpu_s": cpu_s,
+            "memory_allocated_at_start": base, "max_memory_allocated": peak,
+            "launches": launches}
+    emit(line)
+    if not line["finite"] or tuple(got.shape) != (1, S, cfg.vocab_size):
+        fail(f"vlm_frontend: logits of shape {tuple(got.shape)}, finite "
+             f"{line['finite']}")
+    if diff > TOL_FRONTEND:
+        fail(f"vlm_frontend: card and CPU logits differ by {diff} > "
+             f"{TOL_FRONTEND}")
+    if effect < MIN_MROPE_EFFECT:
+        fail(f"vlm_frontend: the M-RoPE streams moved the logits by "
+             f"{effect} only")
+    if any(launches.values()):
+        fail(f"vlm_frontend: LM.forward runs plain attention, yet kernels "
+             f"launched: {launches}")
+    del lm, params, lm_cpu, p_cpu
+    fresh_peak(torch, dev)
+    return launches
+
+
+def phase_hubert(torch, np, smi, dev="cuda", cpu="cpu", shrink=None):
+    """hubert-xlarge at full width and depth: ``hidden`` and ``forward``
+    on ``HUBERT_BATCH`` clips of ``HUBERT_FRAMES`` frames (bf16 as the
+    config says); the paged engine refuses it (no decode path); at
+    ``HUBERT_CPU_LAYERS`` layers in float32 the card's hidden states and
+    logits against the CPU's (``TOL_HUBERT``).  No kernel runs:
+    ``attn_full`` is plain attention, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, tree_map
+    from repro_torch.serving import EngineConfig, PagedEngine
+    full = (shrink or (lambda c: c))(get_config("hubert-xlarge"))
+    base = fresh_peak(torch, dev)
+    lm = build_model(full, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(120))
+    gen = torch.Generator(device=dev).manual_seed(121)
+    frames = torch.randn((HUBERT_BATCH, HUBERT_FRAMES, full.frontend_dim),
+                         generator=gen, device=dev)
+    try:
+        PagedEngine(lm, params, EngineConfig(n_pages=16, page_size=16,
+                                             max_batch=2, max_seq_len=64),
+                    device=dev)
+        refused = False
+    except ValueError as e:
+        refused = "no decode path" in str(e)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lm.hidden(params, {"embeds": frames})      # warm-up
+        hid, hidden_s = timed_s(torch, dev, lambda: lm.hidden(
+            params, {"embeds": frames}))
+        (logits, _), forward_s = timed_s(torch, dev, lambda: lm.forward(
+            params, {"embeds": frames}))
+        launches = launch_counts(ops)
+        peak = peak_bytes(torch, dev)
+        cut = dataclasses.replace(full, n_layers=HUBERT_CPU_LAYERS,
+                                  dtype="float32")
+        m = build_model(cut, device=dev)
+        p = m.init(torch.Generator(device=dev).manual_seed(122))
+        f = frames[:2, :200]
+        card = (m.hidden(p, {"embeds": f}), m.forward(p, {"embeds": f})[0])
+        m_cpu = build_model(cut, device=cpu)
+        p_cpu = tree_map(lambda a: a.to(cpu), p)
+        host = (m_cpu.hidden(p_cpu, {"embeds": f.to(cpu)}),
+                m_cpu.forward(p_cpu, {"embeds": f.to(cpu)})[0])
+    diffs = [float((a.cpu() - b).abs().max()) for a, b in zip(card, host)]
+    finite = bool(torch.isfinite(hid.float()).all()
+                  and torch.isfinite(logits.float()).all())
+    n_tok = HUBERT_BATCH * HUBERT_FRAMES
+    line = {"phase": "hubert", "nvidia_smi": smi, "arch": full.name,
+            "n_layers": full.n_layers, "d_model": full.d_model,
+            "n_heads": full.n_heads, "head_dim": full.head_dim,
+            "causal": full.causal, "act": full.act, "dtype": full.dtype,
+            "frontend_dim": full.frontend_dim, "params": param_count(params),
+            "frames": [HUBERT_BATCH, HUBERT_FRAMES],
+            "hidden_shape": list(hid.shape),
+            "logits_shape": list(logits.shape), "finite": finite,
+            "hidden_s": hidden_s, "forward_s": forward_s,
+            "frames_per_s": n_tok / max(forward_s, 1e-9),
+            "engine_refused": refused,
+            "cpu_check": {"n_layers": HUBERT_CPU_LAYERS, "dtype": "float32",
+                          "frames": [2, 200],
+                          "max_abs_hidden_diff": diffs[0],
+                          "max_abs_logit_diff": diffs[1],
+                          "tol": TOL_HUBERT},
+            "memory_allocated_at_start": base, "max_memory_allocated": peak,
+            "launches": launches,
+            "note": "attn_full is plain attention in both packages: no "
+                    "kernel of the port runs"}
+    emit(line)
+    if not finite or tuple(hid.shape) != (HUBERT_BATCH, HUBERT_FRAMES,
+                                          full.d_model):
+        fail(f"hubert: hidden {tuple(hid.shape)}, finite {finite}")
+    if not refused:
+        fail("hubert: the paged engine did not refuse an encoder")
+    if max(diffs) > TOL_HUBERT:
+        fail(f"hubert: card and CPU differ by {diffs} > {TOL_HUBERT}")
+    if any(launches.values()):
+        fail(f"hubert: kernels launched: {launches}")
+    del lm, params, m, p, m_cpu, p_cpu
+    fresh_peak(torch, dev)
+    return launches
+
+
+def drained(backends, what):
+    for b in backends:
+        e = b.engine
+        e.alloc.check_invariants()
+        if e.alloc.used_pages or e.alloc.swapped_pages or e.alloc.seqs:
+            fail(f"{what}: {e.alloc.used_pages} pages held, "
+                 f"{e.alloc.swapped_pages} parked at the end")
+
+
+def phase_replicas(torch, np, models, long_prompt, costs, smi, dev="cuda"):
+    """``REPLICAS`` engine replicas of the main path's models on the one
+    card: ``run_search_many`` over ``REPLICA_PROMPTS`` prompts must give
+    the one-replica trees per problem, greedy and sampled (tokens exact,
+    rewards within ``TOL_REPLICA_REWARD``), and ``ReplicaServingLoop``
+    serves the serving phase's trace with every page back.  Returns the
+    replica runs' launches per path."""
+    from repro_torch.core import (ETSConfig, ReplicaServingLoop,
+                                  SearchConfig, ServingConfig,
+                                  poisson_requests, run_search_many)
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, 128000, int(n))))
+               for n in rng.integers(128, 257, REPLICA_PROMPTS)]
+    by_path = {}
+    for name, temperature, steps in (("greedy", 0.0, 3),
+                                     ("sampled", 1.0, 2)):
+        scfg = SearchConfig(method="ets", width=8, max_steps=steps,
+                            ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
+                                          cluster_threshold=0.2))
+        runs = {}
+        recorder = Recorder(ops)
+        for n in (1, REPLICAS):
+            with recorder if n > 1 else contextlib.nullcontext():
+                backends = [make_backend(models, dev,
+                                         bcfg=dict(temperature=temperature))
+                            for _ in range(n)]
+                fresh_peak(torch, dev)
+                ops.reset_launch_counts()
+                res, wall = timed_s(torch, dev, lambda: run_search_many(
+                    backends if n > 1 else backends[0], scfg, prompts))
+                launches = launch_counts(ops)
+            drained(backends, f"replicas:{name}")
+            runs[n] = (res, wall, launches, [b.engine for b in backends])
+            del backends
+        same, worst = same_trees(runs[1][0], runs[REPLICAS][0])
+        engines = runs[REPLICAS][3]
+        emit({"phase": "replicas", "path": f"replicas:{name}",
+              "nvidia_smi": smi, "mode": "tree", "temperature": temperature,
+              "prompts": len(prompts), "replicas": REPLICAS,
+              "same_trees": same, "max_reward_rel_gap": worst,
+              "tol_reward": TOL_REPLICA_REWARD,
+              "token_agreement": token_agreement(runs[1][0],
+                                                 runs[REPLICAS][0]),
+              "wall_s": {"one": runs[1][1], "replicas": runs[REPLICAS][1]},
+              "launches": {"one": runs[1][2], "replicas": runs[REPLICAS][2]},
+              "prefill_calls_by_replica": [e.n_prefill_calls
+                                           for e in engines],
+              "decoded_tokens_by_replica": [e.n_decoded_tokens
+                                            for e in engines],
+              "max_memory_allocated": peak_bytes(torch, dev)})
+        if not same or worst > TOL_REPLICA_REWARD:
+            fail(f"replicas:{name}: {REPLICAS} replicas give other trees "
+                 f"({same}) or rewards ({worst}) than one")
+        if not all(e.n_decoded_tokens for e in engines):
+            fail(f"replicas:{name}: a replica decoded nothing")
+        launches = runs[REPLICAS][2]
+        if not (launches["tree_attention"] and launches["flash_prefill"]):
+            fail(f"replicas:{name}: a kernel of the path did not launch: "
+                 f"{launches}")
+        check_recorded(recorder, f"replicas:{name}")
+        by_path[f"replicas:{name}"] = launches
+        del runs, engines
+    # the serving phase's trace, one arrival stream over the replicas
+    prompts = serving_prompts(long_prompt)
+    scfg = SearchConfig(method="ets", width=8, max_steps=3,
+                        ets=ETSConfig(lambda_b=1.0, lambda_d=1.0,
+                                      cluster_threshold=0.2))
+    recorder = Recorder(ops)
+    with recorder:
+        backends = [make_backend(models, dev, serving_ecfg(prompts))
+                    for _ in range(REPLICAS)]
+        reqs = poisson_requests(prompts, rate=0.05, seed=0,
+                                priorities=[0, 1], deadline_slack=300)
+        loop = ReplicaServingLoop(backends, scfg, reqs, max_live=4,
+                                  cfg=ServingConfig.from_stage_costs(
+                                      costs, refill=True))
+        ops.reset_launch_counts()
+        results, wall = timed_s(torch, dev, loop.run)
+        launches = launch_counts(ops)
+    engines = [b.engine for b in backends]
+    report = loop.slo.report()
+    emit({"phase": "replicas_serving", "path": "replicas:serving",
+          "nvidia_smi": smi, "requests": len(prompts),
+          "replicas": REPLICAS, "n_pages_per_replica": SERVING_PAGES,
+          "slo": report, "clock": loop.clock, "wall_s": wall,
+          "routed": [loop.routed[i] for i in range(len(prompts))],
+          "decoded_tokens": [e.n_decoded_tokens for e in engines],
+          "n_swap_outs": [e.n_swap_outs for e in engines],
+          "pages_in_use_at_end": [e.alloc.used_pages for e in engines],
+          "launches": launches})
+    if len(results) != len(prompts) or report["n_finished"] != len(prompts):
+        fail(f"replicas:serving: {report['n_finished']} of {len(prompts)} "
+             f"requests finished")
+    if len(set(loop.routed.values())) != REPLICAS:
+        fail(f"replicas:serving: routed to {set(loop.routed.values())}")
+    drained(backends, "replicas:serving")
+    if not (launches["tree_attention"] and launches["flash_prefill"]):
+        fail(f"replicas:serving: a kernel of the path did not launch: "
+             f"{launches}")
+    check_recorded(recorder, "replicas:serving")
+    by_path["replicas:serving"] = launches
+    return by_path
+
+
+def run_phase(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, then one line with its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase": "seconds", "of": name,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2075,30 +2517,50 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
-    phase_parity(torch, np)
+    run_phase("build", phase_build)
+    run_phase("parity", phase_parity, torch, np)
     timer = Timer(torch)
-    recorder, by_path, models, prompts = phase_main(torch, np, timer)
+    recorder, by_path, models, prompts = run_phase("main", phase_main,
+                                                   torch, np, timer)
     rng = np.random.default_rng(1)
     long_prompt = list(map(int, rng.integers(0, 128000, LONG_PROMPT)))
     swap_prompt = list(map(int, rng.integers(0, 128000, 256)))
-    by_path["streamed"] = phase_streamed(torch, models, long_prompt, smi)
-    by_path["swap"] = phase_swap(torch, models, swap_prompt, smi)
-    by_path["serving"] = phase_serving(torch, models, long_prompt, smi)
+    by_path["streamed"] = run_phase("streamed", phase_streamed, torch,
+                                    models, long_prompt, smi)
+    by_path["swap"] = run_phase("swap", phase_swap, torch, models,
+                                swap_prompt, smi)
+    by_path["serving"], costs = run_phase("serving", phase_serving, torch,
+                                          models, long_prompt, smi)
+    by_path.update(run_phase("replicas", phase_replicas, torch, np, models,
+                             long_prompt, costs, smi))
     # the full-width models of the phases above are not needed again
     del models, prompts
-    by_path["train"] = phase_train(torch, np, smi)
-    by_path["example"] = phase_example(torch, smi)
-    by_path["serve"] = phase_serve(torch, smi)
-    by_path.update(phase_families(torch, np, smi, timer=timer))
+    by_path["train"] = run_phase("train", phase_train, torch, np, smi)
+    by_path["example"] = run_phase("example", phase_example, torch, smi)
+    by_path["serve"] = run_phase("serve", phase_serve, torch, smi)
+    by_path["replicas:serve"] = run_phase(
+        "replicas:serve", phase_serve, torch, smi,
+        argv=["--replicas", str(REPLICAS)], path="replicas:serve")
+    by_path.update(run_phase("families", phase_families, torch, np, smi,
+                             timer=timer))
+    by_path["vlm"], _ = run_phase("vlm", family_run, torch, np,
+                                  "qwen2-vl-7b", None, 6, None, smi, "cuda",
+                                  timer=timer, path="vlm")
+    by_path["vlm:forward"] = run_phase("vlm_frontend", phase_vlm_frontend,
+                                       torch, np, smi)
+    by_path["hubert"] = run_phase("hubert", phase_hubert, torch, np, smi)
     from repro_torch.kernels import ops
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in ops.KERNELS}
-    lines = phase_replay(torch, recorder, launches, timer)
+    lines = run_phase("replay", phase_replay, torch, recorder, launches,
+                      timer)
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
+    emit({"phase": "seconds", "of": "smoke",
+          "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

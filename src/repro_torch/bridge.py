@@ -23,25 +23,27 @@ import torch
 from .device import resolve_device
 from .models.model import tree_map
 
-_KEYS = ("embed", "groups", "shared_attn", "ln_f", "value_head", "lm_head")
+_KEYS = ("embed", "frontend_proj", "groups", "shared_attn", "ln_f",
+         "value_head", "lm_head")
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg, device=None
                     ) -> Dict[str, Any]:
     """Copy a reference params tree (numpy leaves) onto ``device``.
 
-    Covers the dense, encoder, MoE, SSM and hybrid families: ``embed``,
+    Covers the dense, VLM, encoder, MoE, SSM and hybrid families: ``embed``,
     ``groups[gi]`` (layer stacks), ``ln_f``, and when present
-    ``shared_attn`` (hybrid), ``value_head`` (PRM) and ``lm_head``
-    (untied embeddings).  The modality frontends' ``frontend_proj`` is
-    a later slice.
+    ``shared_attn`` (hybrid), ``value_head`` (PRM), ``lm_head`` (untied
+    embeddings) and ``frontend_proj`` (the VLM and audio frontends).
     """
     dev = resolve_device(device)
     extra = set(np_params) - set(_KEYS)
     if extra:
-        raise NotImplementedError(
-            f"params of {cfg.name} carry {sorted(extra)}: the modality "
-            f"frontends are a later slice")
+        raise ValueError(f"params of {cfg.name} carry unknown keys "
+                         f"{sorted(extra)}")
+    if ("frontend_proj" in np_params) != bool(cfg.frontend_dim):
+        raise ValueError(f"{cfg.name}: frontend_proj presence disagrees "
+                         f"with frontend_dim={cfg.frontend_dim}")
     if ("shared_attn" in np_params) != (cfg.arch_type == "hybrid"):
         raise ValueError(f"{cfg.name}: shared_attn presence disagrees with "
                          f"arch_type={cfg.arch_type}")

@@ -1,10 +1,11 @@
 """Architecture config registry.  ``get_config('<arch-id>')``.
 
-The port registers the configurations its engine serves: the dense
-models, the MoE (``deepseek-moe-16b``, ``mixtral-8x7b``), SSM
-(``mamba2-370m``, ``rwkv6-7b``) and hybrid (``zamba2-7b``) families, and
-the tiny test models.  ``qwen2-vl-7b`` and ``hubert-xlarge`` join with
-their frontends.
+The port registers every configuration of the reference: the dense
+models, the VLM (``qwen2-vl-7b``: M-RoPE, patch frontend), the audio
+encoder (``hubert-xlarge``: frame frontend), the MoE
+(``deepseek-moe-16b``, ``mixtral-8x7b``), SSM (``mamba2-370m``,
+``rwkv6-7b``) and hybrid (``zamba2-7b``) families, and the tiny test
+models.
 """
 from .base import (  # noqa: F401
     ModelConfig, MoEConfig, SSMConfig, InputShape, INPUT_SHAPES,
@@ -14,9 +15,9 @@ from .base import (  # noqa: F401
 _LOADED = False
 
 _ARCH_MODULES = [
-    "deepseek_moe_16b", "zamba2_7b", "phi3_mini_3_8b", "llama3_2_1b",
-    "mixtral_8x7b", "qwen3_14b", "rwkv6_7b", "yi_6b", "llemma_34b",
-    "mamba2_370m", "tiny",
+    "deepseek_moe_16b", "zamba2_7b", "hubert_xlarge", "phi3_mini_3_8b",
+    "qwen2_vl_7b", "llama3_2_1b", "mixtral_8x7b", "qwen3_14b",
+    "rwkv6_7b", "yi_6b", "llemma_34b", "mamba2_370m", "tiny",
 ]
 
 

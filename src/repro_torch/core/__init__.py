@@ -9,8 +9,10 @@ Public API:
   SweepScheduler, run_search_many    — continuous cross-problem batching
   AdaptiveConfig, BudgetController   — difficulty-adaptive width + budget
   mcts_step                          — Adaptive Parallel MCTS step policy
+  EngineReplica, ReplicaSweep        — N replicas, one admission queue
   Request, poisson_requests, load_trace, SLOTracker,
   ServingConfig, ServingLoop         — online serving with SLO tracking
+  ReplicaServingLoop                 — one arrival stream over N replicas
   SyntheticTaskConfig, SyntheticProblem, evaluate_method — oracle task
   SyntheticSweep                     — multi-problem synthetic backend
   HardwareModel, simulate_search_cost — memory-op cost model (Fig. 2)
@@ -25,8 +27,10 @@ from .ets import ETSConfig, ETSStep, ets_prune, mcts_step  # noqa: F401
 from .ilp import (SelectionProblem, SelectionResult, greedy_select,  # noqa: F401
                   milp_select, solve)
 from .rebase import rebase_reweight, rebase_weights  # noqa: F401
-from .serving import (Request, ServingConfig, ServingLoop,  # noqa: F401
-                      SLOTracker, load_trace, poisson_requests)
+from .replica import EngineReplica, ReplicaSweep  # noqa: F401
+from .serving import (ReplicaServingLoop, Request,  # noqa: F401
+                      ServingConfig, ServingLoop, SLOTracker, load_trace,
+                      poisson_requests)
 from .synthetic import (SyntheticProblem, SyntheticSweep,  # noqa: F401
                         SyntheticTaskConfig, evaluate_method)
 from .tree import Node, SearchTree  # noqa: F401

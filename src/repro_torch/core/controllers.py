@@ -1445,7 +1445,7 @@ def run_search_many(backend: BackendOrReplicas, scfg: SearchConfig,
 
     Horizontal scaling: ``backend`` may be a list/tuple of backends
     (one engine replica each — :data:`BackendOrReplicas`).  The sweep
-    then runs through :class:`repro.core.replica.ReplicaSweep` — one
+    then runs through :class:`repro_torch.core.replica.ReplicaSweep` — one
     admission queue, least-loaded routing, per-replica reservations —
     and ``max_live`` becomes the per-replica bound.  Per-problem
     results stay bit-identical to the single-backend run
@@ -1463,7 +1463,9 @@ def run_search_many(backend: BackendOrReplicas, scfg: SearchConfig,
                 "continuous=True (the legacy one-problem-at-a-time "
                 "orchestration has no replica router) — pass a single "
                 "backend or drop continuous=False")
-        raise NotImplementedError("replicas: later slice")
+        from .replica import ReplicaSweep
+        return ReplicaSweep(replicas, scfg, prompts,
+                            max_live=max_live, adaptive=adaptive).run()
     backend = replicas[0]
     if continuous:
         return SweepScheduler(backend, scfg, prompts=prompts,

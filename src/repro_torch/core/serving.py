@@ -234,7 +234,9 @@ class ServingLoop(SweepScheduler):
                  cfg: Optional[ServingConfig] = None,
                  adaptive: Optional[AdaptiveConfig] = None):
         reqs = list(requests)
-        self.requests: List[Request] = reqs
+        # keyed by request index (not a plain list): replica routing
+        # registers late arrivals under their GLOBAL index via submit()
+        self.requests: Dict[int, Request] = dict(enumerate(reqs))
         self.cfg = cfg if cfg is not None else ServingConfig()
         if self.cfg.refill and not all(hasattr(backend, m) for m in (
                 "expand_begin", "expand_finish", "open_stream",
@@ -273,6 +275,31 @@ class ServingLoop(SweepScheduler):
         toks = int(budget_fn()) if budget_fn is not None else 8
         self._est_step = (self.cfg.decode_iter_cost * toks
                           + self.cfg.score_cost + self.cfg.embed_cost)
+
+    # -- late registration (replica routing) ---------------------------
+    def submit(self, idx: int, req: Request) -> None:
+        """Register one request after construction, under a caller-chosen
+        (globally unique) index.
+
+        This is the hand-off point of :class:`ReplicaServingLoop`: the
+        replica pool holds the single arrival stream and calls
+        ``submit`` on whichever loop it routes each request to, so a
+        loop only ever sees — and charges virtual time for — its own
+        requests.  The request still waits in ``_pending`` until this
+        loop's clock reaches its arrival time, exactly like a
+        constructor-passed request."""
+        import bisect
+        assert idx not in self.requests, f"duplicate request index {idx}"
+        self.requests[idx] = req
+        self._priority[idx] = req.priority
+        if req.deadline is not None:
+            self._deadline[idx] = req.deadline
+        self.slo.note_arrival(idx, req.arrival, priority=req.priority,
+                              deadline=req.deadline)
+        bisect.insort(self._pending, (req.arrival, idx, list(req.prompt)))
+        # standalone submit-driven loops with contiguous indices can
+        # still use run(); replica pools merge .results themselves
+        self._n = max(self._n, idx + 1)
 
     # -- virtual clock -------------------------------------------------
     def _charge(self, cost: float) -> None:
@@ -486,8 +513,133 @@ class ServingLoop(SweepScheduler):
 # ---------------------------------------------------------------------------
 
 class ReplicaServingLoop:
-    """Serve ONE timed arrival stream on N engine replicas: a later
-    slice of the port (replicas behind one admission queue)."""
+    """Serve ONE timed arrival stream on N engine replicas.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("replicas: later slice")
+    Each replica is a full :class:`ServingLoop` over its own backend
+    (engine, pool, spill buffer, reservations) constructed empty; this
+    pool holds the global arrival stream and routes each request, at
+    its arrival time, to the least-loaded replica (pluggable via
+    ``router`` — signature as :data:`repro_torch.core.replica.Router`).
+    Routed requests are registered under their GLOBAL index via
+    :meth:`ServingLoop.submit`, so namespaces, demotion, and refill
+    inside each loop are untouched — a replica cannot tell it is one
+    of many.
+
+    Clock semantics: every replica runs its own virtual clock (real
+    replicas run concurrently, so their virtual times overlap rather
+    than add).  The drive loop keeps them loosely synchronized at
+    routing points — before a request routes at arrival time ``t``,
+    any replica whose clock lags ``t`` ticks first — so the load each
+    routing decision sees is each replica's state *at* ``t``, making a
+    run a pure function of (requests, seed, costs, router).
+
+    Bit-identity: per-problem RNG namespaces are seeded from the
+    backend seed alone, so with identically-seeded backends a request's
+    answer is independent of which replica serves it — per-request
+    results reproduce a serial single-replica run exactly.
+
+    ``max_live`` is per replica (None: even split of the request
+    count).  ``run()`` returns results in request order;
+    :attr:`slo` merges every replica's tracker for a fleet-wide report.
+    """
+
+    def __init__(self, backends: Sequence[Any], scfg: SearchConfig,
+                 requests: Sequence[Request], *,
+                 max_live: Optional[int] = None,
+                 cfg: Optional[ServingConfig] = None,
+                 adaptive: Optional[AdaptiveConfig] = None,
+                 router=None):
+        from .replica import _least_loaded
+        assert len(backends) >= 1, "need at least one backend"
+        reqs = list(requests)
+        self._n = len(reqs)
+        if max_live is None:
+            per = -(-max(self._n, 1) // len(backends))   # ceil split
+        else:
+            per = max_live
+        self.loops = [ServingLoop(b, scfg, [], max_live=per, cfg=cfg,
+                                  adaptive=adaptive) for b in backends]
+        self.router = router or _least_loaded
+        self._arrivals: List[Tuple[float, int, Request]] = sorted(
+            ((r.arrival, i, r) for i, r in enumerate(reqs)),
+            key=lambda e: (e[0], e[1]))
+        self.routed: Dict[int, int] = {}       # idx -> replica id
+
+    # -- load ----------------------------------------------------------
+    @staticmethod
+    def _load(lp: ServingLoop) -> int:
+        """Requests a replica is responsible for right now."""
+        return (len(lp.live) + len(lp.parked) + len(lp._queue)
+                + len(lp._pending))
+
+    def _active(self) -> List[int]:
+        return [k for k, lp in enumerate(self.loops)
+                if lp.live or lp.parked or lp._queue or lp._pending]
+
+    # -- one scheduling quantum ----------------------------------------
+    def step(self) -> bool:
+        """Route or tick once.  Returns True while work remains.
+
+        While arrivals are outstanding, replicas lagging the next
+        arrival time catch up one tick at a time (laggard with the
+        smallest clock first — a deterministic merge of the replica
+        timelines); once none lag, the arrival routes.  With no
+        arrivals left, every active replica ticks each quantum.
+        """
+        active = self._active()
+        if self._arrivals:
+            t = self._arrivals[0][0]
+            lag = [k for k in active if self.loops[k].clock < t]
+            if lag:
+                k = min(lag, key=lambda k: (self.loops[k].clock, k))
+                self.loops[k].tick()
+                return True
+            _, idx, req = self._arrivals.pop(0)
+            loads = [self._load(lp) for lp in self.loops]
+            eligible = list(range(len(self.loops)))
+            rid = self.router(eligible, loads)
+            assert rid in eligible, rid
+            self.routed[idx] = rid
+            self.loops[rid].submit(idx, req)
+            return True
+        if not active:
+            return False
+        for k in active:
+            self.loops[k].tick()
+        return True
+
+    def run(self) -> List[SearchResult]:
+        while self.step():
+            pass
+        merged: Dict[int, SearchResult] = {}
+        for lp in self.loops:
+            merged.update(lp.results)
+        assert len(merged) == self._n, (len(merged), self._n)
+        return [merged[i] for i in range(self._n)]
+
+    # -- fleet-wide introspection --------------------------------------
+    @property
+    def results(self) -> Dict[int, SearchResult]:
+        merged: Dict[int, SearchResult] = {}
+        for lp in self.loops:
+            merged.update(lp.results)
+        return merged
+
+    @property
+    def slo(self) -> SLOTracker:
+        """Union of every replica's tracker (indices are global, so the
+        dicts are disjoint by construction)."""
+        out = SLOTracker()
+        for lp in self.loops:
+            out.arrivals.update(lp.slo.arrivals)
+            out.admitted.update(lp.slo.admitted)
+            out.finished.update(lp.slo.finished)
+            out.deadlines.update(lp.slo.deadlines)
+            out.priorities.update(lp.slo.priorities)
+        return out
+
+    @property
+    def clock(self) -> float:
+        """Fleet makespan: the furthest replica clock (replicas run
+        concurrently, so wall time is the max, not the sum)."""
+        return max(lp.clock for lp in self.loops)

@@ -300,6 +300,27 @@ __global__ void __launch_bounds__(TREE_WARPS * 32) tree_split_kernel(
   }
 }
 
+// Leaves per CTA of the split pass: all of the batch when one CTA's
+// shared memory holds their queries and state beside the four staged
+// pages, else fewer (the batch is then cut into leaf chunks, and each
+// chunk streams the pages its own leaves need, so a page shared across
+// chunks is read once per chunk).  Writes the CTA's shared bytes to
+// *smem; returns 0 when not even one leaf fits.
+static int leaves_per_cta(size_t elem, int B, int S, int G, int hd, int pps,
+                          size_t optin, size_t* smem) {
+  const size_t page_bytes = (size_t)S * hd * elem;
+  int lb = B < 32 * TREE_MAX_WORDS ? B : 32 * TREE_MAX_WORDS;
+  for (;;) {
+    const int nwords = (lb + 31) / 32;
+    *smem = 4 * page_bytes + (size_t)lb * G * hd * elem
+            + (size_t)lb * G * (hd + 3 + S) * sizeof(float)
+            + ((size_t)pps * (nwords + 1) + 2 * lb) * 4;
+    if (*smem <= optin) return lb;
+    if (lb == 1) return 0;
+    lb = lb > 32 ? lb - 32 : lb / 2;
+  }
+}
+
 template <typename T>
 static int launch(const void* q, const void* k, const void* v,
                   const void* page_list, const void* page_mask,
@@ -312,19 +333,9 @@ static int launch(const void* q, const void* k, const void* v,
     size_t optin = 0;                   // the card's per-block cap
     cudaError_t e = smem_optin(&optin);
     if (e != cudaSuccess) return (int)e;
-    // leaves per CTA: all of the batch when their state fits
-    const size_t page_bytes = (size_t)S * hd * sizeof(T);
-    int lb = B < 32 * TREE_MAX_WORDS ? B : 32 * TREE_MAX_WORDS;
     size_t smem = 0;
-    for (;;) {
-      const int nwords = (lb + 31) / 32;
-      smem = 4 * page_bytes + (size_t)lb * G * hd * sizeof(T)
-             + (size_t)lb * G * (hd + 3 + S) * sizeof(float)
-             + ((size_t)pps * (nwords + 1) + 2 * lb) * 4;
-      if (smem <= optin) break;
-      if (lb == 1) return (int)cudaErrorInvalidValue;
-      lb = lb > 32 ? lb - 32 : lb / 2;
-    }
+    const int lb = leaves_per_cta(sizeof(T), B, S, G, hd, pps, optin, &smem);
+    if (lb == 0) return (int)cudaErrorInvalidValue;
     auto kern = tree_split_kernel<T>;
     static size_t smem_allowed = 0;     // this instance's raised cap
     if (smem > smem_allowed) {
@@ -371,4 +382,17 @@ extern "C" int tree_attention_launch(
   return launch<float>(q, k_pool, v_pool, page_list, page_mask, page_lens,
                        out, part_acc, part_ml, part_hit, B, n_entries, S, K,
                        G, hd, pages_per_split, scale, st);
+}
+
+// Leaves per CTA the split pass would take for these shapes (the leaf
+// chunks of a call are ceil(B / leaves)); 0 when not even one leaf's
+// state fits, a negative cudaError_t when the device query fails.
+extern "C" int tree_attention_leaves_per_cta(int B, int S, int G, int hd,
+                                             int pages_per_split,
+                                             int dtype) {
+  size_t optin = 0, smem = 0;
+  cudaError_t e = smem_optin(&optin);
+  if (e != cudaSuccess) return -(int)e;
+  const size_t elem = dtype == DTYPE_BF16 ? 2 : 4;
+  return leaves_per_cta(elem, B, S, G, hd, pages_per_split, optin, &smem);
 }

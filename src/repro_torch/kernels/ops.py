@@ -240,6 +240,31 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     return out
 
 
+def tree_leaves_per_cta(q, k_pool, n_entries: int, *,
+                        pages_per_split: Optional[int] = None) -> int:
+    """The leaves one CTA of the tree kernel's split pass serves for a
+    call (q (B,H,hd), k_pool (P,S,K,hd) on a CUDA device, ``n_entries``
+    covered page-list entries): all B when one CTA's shared memory holds
+    every leaf's queries and state, else fewer, and the batch is cut
+    into ceil(B / leaves) leaf chunks.  A chunk's CTAs stream the pages
+    some leaf of the chunk needs, so a page that leaves of two chunks
+    share is read twice.  A query of the kernel's own sizing; it
+    launches nothing."""
+    B, H, hd = q.shape
+    _, S, K, _ = k_pool.shape
+    pps = TREE_PAGES_PER_SPLIT if pages_per_split is None \
+        else int(pages_per_split)
+    pps = max(1, min(pps, n_entries))
+    lib = build.load(TREE.name)
+    fn = lib.tree_attention_leaves_per_cta
+    fn.argtypes, fn.restype = [_I] * 6, _I
+    lb = fn(B, S, H // K, hd, pps, _dtype_code(q))
+    if lb <= 0:
+        raise RuntimeError(f"tree_attention: no leaf fits one CTA at B={B} "
+                           f"S={S} G={H // K} hd={hd} ({lb})")
+    return lb
+
+
 FLASH_HEAD_DIMS = (32, 64, 96, 112, 128)   # the kernel's template instances
 
 

@@ -1,4 +1,4 @@
 """Entry points (port of ``repro.launch``): ``train`` (local training
-plus a checkpoint) and ``serve`` (train, then an online serving loop).
-The production-mesh dry run and multi-replica serving are later slices
-(``ROADMAP.md`` queue 1 items 4 and 6)."""
+plus a checkpoint) and ``serve`` (train, then an online serving loop on
+one or more engine replicas).  The production-mesh dry run is not
+ported (``ROADMAP.md`` queue 1 item 6)."""

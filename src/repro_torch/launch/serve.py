@@ -1,6 +1,7 @@
-"""Serving launcher (port of ``repro.launch.serve``, one replica): train
-a tiny LM + PRM on the arithmetic task, then serve a Poisson workload or
-a trace file through ``ServingLoop`` in tree mode and print the SLO
+"""Serving launcher (port of ``repro.launch.serve``): train a tiny LM +
+PRM on the arithmetic task, then serve a Poisson workload or a trace
+file through ``ServingLoop`` in tree mode, or through
+``ReplicaServingLoop`` on ``--replicas N`` engines, and print the SLO
 report.
 
     # Poisson workload, token-level refill, SLO report:
@@ -12,11 +13,16 @@ report.
     PYTHONPATH=src python -m repro_torch.launch.serve --trace trace.json \\
         --no-refill
 
+    # one arrival stream over 2 engine replicas (least-loaded routing):
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2
+
 The clock is virtual (stage costs, not wall time), so runs are
 deterministic in ``--seed``.  Training and serving run on the CUDA
-device unless ``--device`` names another.  ``--replicas > 1`` and
-``--mesh`` (``ROADMAP.md`` queue 1 items 4 and 6) and ``--dry-run``
-(item 6) are not ported and raise ``NotImplementedError``.
+device unless ``--device`` names another.  The replicas share one set
+of model weights; each has its own engine, KV pool, allocator and key
+chains, seeded from the backend seed, so routing never changes an
+answer.  ``--mesh`` and ``--dry-run`` (``ROADMAP.md`` queue 1 item 6)
+are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,8 +34,9 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..core import (ETSConfig, SearchConfig, ServingConfig, ServingLoop,
-                    load_trace, poisson_requests)
+from ..core import (ETSConfig, ReplicaServingLoop, SearchConfig,
+                    ServingConfig, ServingLoop, load_trace,
+                    poisson_requests)
 from ..models.model import build_model
 from ..serving import BackendConfig, EngineConfig, LMBackend, PagedEngine
 from ..training import TrainConfig, train_lm, train_prm
@@ -55,7 +62,8 @@ def parse_args(argv=None):
     ap.add_argument("--max-live", type=int, default=4,
                     help="per-replica live-problem bound")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas (only 1 is ported)")
+                    help="engine replicas on the device, one arrival "
+                         "stream")
     ap.add_argument("--mesh", type=int, default=0, metavar="MODEL",
                     help="KV pool mesh (not ported; 0 = no mesh)")
     ap.add_argument("--no-refill", action="store_true",
@@ -71,17 +79,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Prints the report; returns ``{"loop", "backend", "results",
-    "answers", "report"}``."""
+    """Prints the report; returns ``{"loop", "backends", "backend",
+    "results", "answers", "report"}`` (``backend`` is the first
+    replica's)."""
     args = parse_args(argv)
     if args.dry_run:
         raise NotImplementedError(
             "--dry-run lowers the serve step on a production mesh: not "
             "ported (ROADMAP.md queue 1 item 6, meshes)")
-    if args.replicas > 1:
-        raise NotImplementedError(
-            "--replicas > 1: replicas are not ported (ROADMAP.md queue 1 "
-            "item 4)")
     if args.mesh:
         raise NotImplementedError(
             "--mesh: meshes are not ported (ROADMAP.md queue 1 item 6)")
@@ -111,12 +116,18 @@ def main(argv=None) -> dict:
     ecfg = EngineConfig(
         n_pages=2048, page_size=8, max_batch=max(args.width * 2, 32),
         max_seq_len=200, attention="tree")
-    engine = PagedEngine(lm, lm_params, ecfg, device=dev)
-    backend = LMBackend(engine, prm, prm_params, emb, emb_params,
-                        BackendConfig(step_token=NEWLINE, eos_token=EOS,
-                                      max_step_tokens=12, max_depth=8),
-                        answer_fn=ArithmeticTask.extract_answer, seed=500,
-                        device=dev)
+
+    def make_backend():
+        # identically-seeded backends: a request's RNG namespace chain
+        # is replica-invisible, so routing never changes an answer
+        engine = PagedEngine(lm, lm_params, ecfg, device=dev)
+        return LMBackend(engine, prm, prm_params, emb, emb_params,
+                         BackendConfig(step_token=NEWLINE, eos_token=EOS,
+                                       max_step_tokens=12, max_depth=8),
+                         answer_fn=ArithmeticTask.extract_answer, seed=500,
+                         device=dev)
+
+    backends = [make_backend() for _ in range(max(args.replicas, 1))]
     scfg = SearchConfig(method=args.method, width=args.width, max_steps=8,
                         ets=ETSConfig(lambda_b=2.0, lambda_d=1.0,
                                       cluster_threshold=0.15))
@@ -136,15 +147,19 @@ def main(argv=None) -> dict:
 
     svc = ServingConfig(refill=not args.no_refill,
                         first_finish=args.first_finish)
-    loop = ServingLoop(backend, scfg, requests, max_live=args.max_live,
-                       cfg=svc)
+    if len(backends) > 1:
+        loop = ReplicaServingLoop(backends, scfg, requests,
+                                  max_live=args.max_live, cfg=svc)
+    else:
+        loop = ServingLoop(backends[0], scfg, requests,
+                           max_live=args.max_live, cfg=svc)
     results = loop.run()
 
     rep = loop.slo.report()
     mode = "lock-step" if args.no_refill else "refill"
     print(f"\n== online serving ({len(requests)} requests, {mode}"
           f"{', first-finish' if args.first_finish else ''}, "
-          f"replicas=1, max_live={args.max_live}) ==")
+          f"replicas={len(backends)}, max_live={args.max_live}) ==")
     for k in ("n_finished", "p50_tta", "p90_tta", "p99_tta", "mean_tta",
               "max_tta", "deadline_hit_rate"):
         v = rep.get(k)
@@ -155,8 +170,8 @@ def main(argv=None) -> dict:
                   for r, a in zip(results, answers)) / len(answers)
         print(f"  {'accuracy':18s}: {acc:.2f}")
     print(json.dumps(rep))
-    return {"loop": loop, "backend": backend, "results": results,
-            "answers": answers, "report": rep}
+    return {"loop": loop, "backends": backends, "backend": backends[0],
+            "results": results, "answers": answers, "report": rep}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""GQA attention with RoPE, qk-norm and sliding window (port of
-``repro.models.attention``, dense and encoder paths).
+"""GQA attention with RoPE (M-RoPE for the VLM), qk-norm and sliding
+window (port of ``repro.models.attention``, dense, VLM and encoder
+paths).
 
 The einsum math here is the plain attention the PRM and the embedder run
 (the reference computes them in jnp, not Pallas).  Layouts follow the
@@ -132,7 +133,7 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, scale: float, causal: bool,
 # ---------------------------------------------------------------------------
 
 def _project_qkv(p, x, cfg, positions):
-    """Project + rope.  positions: (B,S)."""
+    """Project + rope.  positions: (B,S), or (3,B,S) for M-RoPE."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
@@ -142,23 +143,25 @@ def _project_qkv(p, x, cfg, positions):
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     if cfg.n_heads > 0:
-        ang = rope_angles(positions, hd, cfg.rope_theta)
+        ang = rope_angles(positions, hd, cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
     return q, k, v
 
 
 def attn_full(p, x, cfg, positions) -> torch.Tensor:
-    """Whole-sequence attention (PRM / encoder).  Returns y (B,S,d)."""
+    """Whole-sequence attention (PRM / encoder).  positions (B,S), or
+    (3,B,S) for M-RoPE, whose masks use stream 0.  Returns y (B,S,d)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
+    pos2d = positions if positions.dim() == 2 else positions[0]
     window = cfg.sliding_window
     if S >= BLOCKED_ATTN_THRESHOLD:
-        y = blocked_attention(q, k, v, positions, positions,
+        y = blocked_attention(q, k, v, pos2d, pos2d,
                               causal=cfg.causal, window=window,
                               scale=cfg.head_dim ** -0.5)
     else:
-        mask = make_mask(positions, positions, causal=cfg.causal,
+        mask = make_mask(pos2d, pos2d, causal=cfg.causal,
                          window=window)
         y = masked_attention(q, k, v, mask, scale=cfg.head_dim ** -0.5)
     return matmul(y.reshape(B, S, -1), p["wo"])

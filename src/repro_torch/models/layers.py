@@ -10,6 +10,7 @@ dtypes computes in their promoted type (``matmul`` below), as jnp does.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,11 +88,31 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (ar / head_dim))
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
-                ) -> torch.Tensor:
-    """(..., S) int positions -> (..., S, head_dim//2) float32 angles."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Rotation angles for the given positions.
+
+    positions: (..., S) int for ordinary RoPE, or (3, ..., S) for M-RoPE
+    (temporal/height/width position streams; Qwen2-VL).  Returns
+    (..., S, head_dim//2) float32 angles.
+    """
     inv = rope_freqs(head_dim, theta, device=positions.device)
-    return positions.float()[..., None] * inv
+    ang = positions.float()[..., None] * inv
+    if not mrope_sections:
+        return ang
+    # M-RoPE: split the hd/2 frequency channels into (t, h, w) sections
+    # and drive each section with its own position stream
+    if positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE needs (3, ..., S) positions, got "
+                         f"{tuple(positions.shape)}")
+    if sum(mrope_sections) != inv.shape[0]:
+        raise ValueError(f"mrope_sections {mrope_sections} do not sum to "
+                         f"head_dim/2 = {inv.shape[0]}")
+    parts, off = [], 0
+    for i, s in enumerate(mrope_sections):
+        parts.append(ang[i, ..., off:off + s])
+        off += s
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Language model: dense, encoder, MoE, SSM (mamba2, rwkv6) and hybrid
-(zamba2) families (port of ``repro.models.model``).
+"""Language model: dense, VLM, encoder, MoE, SSM (mamba2, rwkv6) and
+hybrid (zamba2) families (port of ``repro.models.model``).
 
 ``LM(cfg)`` is functional like the reference: params are a nested dict
 of tensors in the reference layout, so the bridge from reference params
@@ -7,20 +7,25 @@ is a plain copy.
 
   * ``init(generator)``            — parameter init (fp32 master params)
   * ``forward(params, batch)``     — full-sequence logits (+ MoE aux)
-  * ``loss(params, batch)``        — next-token CE (training; dense and
-                                     encoder plans)
+  * ``loss(params, batch)``        — next-token CE (training; dense,
+                                     VLM and encoder plans)
   * ``hidden(params, batch)``      — final-layer normed hidden states
   * ``reward(params, batch)``      — PRM scalar head (with_value_head)
   * ``embed_inputs`` / ``logits``  — the pieces the paged engine composes
 
 Family specifics, as in the reference:
-  dense/encoder — GQA attention + (Sw)iGLU/GELU MLP.
+  dense/vlm/encoder — GQA attention (+ M-RoPE for VLM, bidirectional
+      for encoder) + (Sw)iGLU/GELU MLP.
   moe     — GQA attention + sort-dispatch MoE FFN (models/moe.py).
   ssm     — RWKV6 time-mix + channel-mix (models/rwkv6.py), or Mamba2
       blocks (models/mamba2.py).
   hybrid  — Zamba2: Mamba2 backbone; one *shared* attention+MLP block
       applied after every ``attn_every``-th mamba layer
       (``hybrid_super`` groups, params stacked (count, attn_every, ...)).
+
+Modality frontends (audio/VLM) are stubs, as in the reference: inputs
+carry precomputed frame/patch embeddings (``batch["embeds"]``), which a
+linear projector (``frontend_proj``) maps to d_model.
 
 dtype flow follows the reference op by op: master params are fp32,
 ``forward``/``hidden``/``reward`` cast them to the compute type
@@ -99,11 +104,6 @@ def compute_dtype_of(cfg) -> torch.dtype:
 class LM:
     def __init__(self, cfg, *, with_value_head: bool = False,
                  device=None):
-        if cfg.arch_type not in ("dense", "encoder", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.arch_type}): the port serves the dense, "
-                f"encoder, MoE, SSM and hybrid families; M-RoPE and the "
-                f"modality frontends are a later slice")
         self.cfg = cfg
         self.with_value_head = with_value_head
         self.device = resolve_device(device)
@@ -126,6 +126,9 @@ class LM:
         dev = generator.device
         p: Params = {"embed": embed_init(generator, cfg.vocab_size,
                                          cfg.d_model, dt)}
+        if cfg.frontend_dim:
+            p["frontend_proj"] = dense_init(generator, cfg.frontend_dim,
+                                            cfg.d_model, dt)
 
         def ones():
             return torch.ones((cfg.d_model,), dtype=dt, device=dev)
@@ -190,14 +193,28 @@ class LM:
     # Input embedding / output head
     # ------------------------------------------------------------------
     def embed_inputs(self, p: Params, batch: Dict[str, Any]):
-        """Returns (x (B,S,d), positions (B,S))."""
-        tokens = batch["tokens"]
-        x = p["embed"].to(self.compute_dtype)[tokens]
+        """Returns (x (B,S,d), positions (B,S), or (3,B,S) for M-RoPE).
+
+        ``batch["embeds"]`` (B,S_f,frontend_dim), when given, is
+        projected by ``frontend_proj`` and placed before the token
+        embeddings; either part may be absent.  Without
+        ``batch["positions"]`` the positions count 0..S-1, broadcast to
+        the three M-RoPE streams where the config has sections."""
+        cdt = self.compute_dtype
+        parts = []
+        if batch.get("embeds") is not None:
+            parts.append(matmul(batch["embeds"].to(cdt),
+                                p["frontend_proj"].to(cdt)))
+        if batch.get("tokens") is not None:
+            parts.append(p["embed"].to(cdt)[batch["tokens"]])
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         B, S = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device).expand(B, S)
+            if self.cfg.mrope_sections:
+                positions = positions.expand(3, B, S)
         return x, positions
 
     def logits(self, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -324,14 +341,16 @@ class LM:
 
     def loss(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Next-token CE over ``batch["labels"]`` (masked by
-        ``loss_mask``).  Dense and encoder plans: the MoE load-balance
-        term and the recurrent families' training wait for the
-        families' training slice."""
-        if self.cfg.arch_type not in ("dense", "encoder"):
+        ``loss_mask``).  Dense, VLM and encoder plans; the MoE, SSM and
+        hybrid plans (with the MoE load-balance term) are the next
+        slice, the families' training."""
+        if self.cfg.arch_type not in ("dense", "vlm", "encoder"):
             raise NotImplementedError(
                 f"{self.cfg.name} ({self.cfg.arch_type}): LM.loss of the "
-                f"MoE, SSM and hybrid families (with the MoE aux term) is "
-                f"the families' training slice (ROADMAP queue 1)")
+                f"MoE, SSM and hybrid families (with the MoE aux term, "
+                f"dispatch and combine as autograd Functions) is the next "
+                f"slice of the port, the families' training slice "
+                f"(ROADMAP queue 1 item 3)")
         logits, aux = self.forward(p, batch)
         labels = batch["labels"]
         # align: logits for positions covering the label span (suffix)

@@ -223,6 +223,15 @@ class PagedEngine:
     # ------------------------------------------------------------------
     # Model steps
     # ------------------------------------------------------------------
+    def _rope_positions(self, positions):
+        """The rope positions of a text prefill: ``positions`` (B,T), or
+        for M-RoPE the same positions broadcast to the three streams
+        (equal streams are exactly plain RoPE; the engine serves text
+        only, as the reference's does)."""
+        if self.cfg.mrope_sections:
+            return positions.expand(3, *positions.shape)
+        return positions
+
     @torch.no_grad()
     def _prefill_step(self, tokens, positions, pages, slots, lengths,
                       srows):
@@ -237,10 +246,11 @@ class PagedEngine:
         padding rows).
         """
         B, T = tokens.shape
+        pos = self._rope_positions(positions)
         x, _ = self.model.embed_inputs(self.params, {"tokens": tokens,
-                                                     "positions": positions})
-        ctx = PrefillCtx(positions=positions, pages=pages, slots=slots,
-                         lengths=lengths, state_rows=srows)
+                                                     "positions": pos})
+        ctx = PrefillCtx(positions=positions, pos=pos, pages=pages,
+                         slots=slots, lengths=lengths, state_rows=srows)
         for rt in self.runtimes:
             x = rt.prefill_into_pool(self.params, x, ctx, self.pool.k,
                                      self.pool.v, self._state_in())
@@ -264,12 +274,13 @@ class PagedEngine:
         state page ``srows`` (1,) and write it back.  Returns the
         segment's last-token logits (1, V).
         """
+        pos = self._rope_positions(positions)
         x, _ = self.model.embed_inputs(self.params, {"tokens": tokens,
-                                                     "positions": positions})
+                                                     "positions": pos})
         lengths = torch.full((tokens.shape[0],), length, dtype=torch.int32,
                              device=tokens.device)
-        ctx = PrefillCtx(positions=positions, pages=pages, slots=slots,
-                         lengths=lengths, hist_table=hist_table,
+        ctx = PrefillCtx(positions=positions, pos=pos, pages=pages,
+                         slots=slots, lengths=lengths, hist_table=hist_table,
                          hist_len=hist_len, state_rows=srows)
         for rt in self.runtimes:
             x = rt.prefill_streamed(self.params, x, ctx, self.pool.k,

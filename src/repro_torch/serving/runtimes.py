@@ -60,6 +60,8 @@ class DecodeCtx:
 class PrefillCtx:
     """A right-padded prefill bucket, or one streamed segment."""
     positions: torch.Tensor   # (B,T), -1 at padded slots
+    pos: torch.Tensor         # rope positions: positions, or (3,B,T)
+    #                           for M-RoPE
     pages: torch.Tensor       # (B,T) write pages (dump at padding)
     slots: torch.Tensor       # (B,T) write slots
     lengths: torch.Tensor     # (B,) valid tokens per row
@@ -84,6 +86,8 @@ def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
     if cfg.qk_norm:
         q = rms_norm(ap["q_norm"], q, cfg.norm_eps)
         k = rms_norm(ap["k_norm"], k, cfg.norm_eps)
+    # plain RoPE on the context length, M-RoPE models included: for
+    # text the three streams are equal, which is exactly plain RoPE
     ang = rope_angles(ctx.lengths[:, None], hd, cfg.rope_theta)
     q = apply_rope(q, ang)
     k = apply_rope(k, ang)
@@ -102,7 +106,7 @@ def _attn_prefill_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
     B, T = x.shape[:2]
     scale = cfg.head_dim ** -0.5
     h = rms_norm(blk["ln1"], x, cfg.norm_eps)
-    q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.positions)
+    q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.pos)
     pool_k[kv_l, ctx.pages, ctx.slots] = k.to(pool_k.dtype)
     pool_v[kv_l, ctx.pages, ctx.slots] = v.to(pool_v.dtype)
     y = ops.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -142,7 +146,7 @@ def _attn_streamed_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
     B, Ts = x.shape[:2]
     scale = cfg.head_dim ** -0.5
     h = rms_norm(blk["ln1"], x, cfg.norm_eps)
-    q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.positions)
+    q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.pos)
     pool_k[kv_l, ctx.pages, ctx.slots] = k.to(pool_k.dtype)
     pool_v[kv_l, ctx.pages, ctx.slots] = v.to(pool_v.dtype)
     K, hd = k.shape[2], k.shape[3]

@@ -536,3 +536,156 @@ def test_swap_pinned_roundtrip_on_card(cuda):
                                      temperature=1.0).values()))
         e.alloc.check_invariants()
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl-7b's head shape: 28 query heads over 4 kv heads (G = 7, odd and
+# not a power of two), hd 128, page size 16
+# ---------------------------------------------------------------------------
+
+QWEN_H, QWEN_K, QWEN_HD = 28, 4, 128
+
+
+def _allocator_tree(S, P, problems=4, leaves=8, n_rows=32):
+    """Block tables and lengths of a search tree built with the port's
+    allocator: each problem's prompt (ending mid-page) branches into
+    ``leaves`` leaves, each of which appends its own tail (the shared
+    partial last page is copied on write, so shared pages are full).
+    Returns (allocator, row seq ids padded with None to ``n_rows``)."""
+    from repro_torch.kvcache.allocator import PageAllocator
+    alloc = PageAllocator(P - 1, S)
+    rows = []
+    for _ in range(problems):
+        h = alloc.new_seq(int(RNG.integers(8 * S, 14 * S)) + S // 2)
+        for kid in alloc.branch(h.seq_id, leaves):
+            alloc.append_tokens(kid.seq_id, int(RNG.integers(1, 3 * S)))
+            rows.append(kid.seq_id)
+        alloc.free_seq(h.seq_id)
+    alloc.check_invariants()
+    return alloc, rows + [None] * (n_rows - len(rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "tree"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_qwen2_vl_heads(cuda, kernel, dtype):
+    """Both decode kernels at G 7, hd 128 over one allocator-built tree
+    of 4 problems x 8 leaves and 8 inactive rows (32 rows, as the
+    smoke's sweep): the paged kernel's 16-lane head segments (112 of 128
+    threads on) and the tree kernel's (leaf, head) pairs, in float32
+    (2e-5 / 3e-5) and bfloat16 (one bf16 rounding on top)."""
+    S, P = 16, 512
+    alloc, rows = _allocator_tree(S, P)
+    kp, vp = (_rand((P, S, QWEN_K, QWEN_HD), dtype, cuda) for _ in range(2))
+    q = _rand((len(rows), QWEN_H, QWEN_HD), dtype, cuda)
+    scale = QWEN_HD ** -0.5
+    live = [r for r in rows if r is not None]
+    if kernel == "paged":
+        T = max(len(alloc.seqs[r].block_table) for r in live)
+        bt = np.full((len(rows), T), -1, np.int32)
+        lens = np.zeros(len(rows), np.int32)
+        for b, r in enumerate(live):
+            t = alloc.seqs[r].block_table
+            bt[b, :len(t)] = t
+            lens[b] = alloc.seqs[r].length
+        args = (q, kp, vp, torch.as_tensor(bt, device=cuda),
+                torch.as_tensor(lens, device=cuda))
+        out = ops.paged_attention(*args, scale=scale)
+        want = paged_attention_ref(*args, scale=scale)
+        tol = 2e-5
+    else:
+        meta = alloc.tree_metadata(rows, pad_page=P - 1, check=True)
+        assert meta.n_unique < sum(len(alloc.seqs[r].block_table)
+                                   for r in live)      # pages are shared
+        args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
+            meta.page_list, meta.page_mask, meta.page_lens))
+        out = ops.tree_attention(*args, scale=scale, n_live=meta.n_unique)
+        want = tree_attention_ref(*args, scale=scale)
+        tol = 3e-5
+    rtol = 0.0 if dtype == torch.float32 else 2 * 2 ** -7
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=tol)
+    assert torch.all(out[len(live):] == 0)
+
+
+@pytest.mark.cuda
+def test_tree_kernel_leaf_chunks_at_qwen2_vl_heads(cuda):
+    """At 32 rows the float32 leaves' state does not fit one CTA (about
+    279 KB against the 227 KB opt-in), so the split pass cuts the batch
+    into two leaf chunks of 16; bf16 halves the staged pages and queries
+    and keeps one chunk of 32."""
+    S, P = 16, 256
+    for dtype, leaves in ((torch.float32, 16), (torch.bfloat16, 32)):
+        q = _rand((32, QWEN_H, QWEN_HD), dtype, cuda)
+        kp = _rand((P, S, QWEN_K, QWEN_HD), dtype, cuda)
+        assert ops.tree_leaves_per_cta(q, kp, 64) == leaves, dtype
+    assert ops.tree_leaves_per_cta(q[:16].float(), kp.float(), 64) == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,dtype", [(100, torch.float32),
+                                     (256, torch.float32),
+                                     (1024, torch.float32),
+                                     (100, torch.bfloat16),
+                                     (256, torch.bfloat16)])
+def test_flash_kernel_qwen2_vl_heads(cuda, S, dtype):
+    """Flash prefill at G 7, hd 128: a bucket that is not a multiple of
+    the tile, the sweep's bucket, and a long fp32 bucket also against
+    float64 (2e-5, and no farther than twice the plain version)."""
+    q = _rand((2, S, QWEN_H, QWEN_HD), dtype, cuda)
+    k, v = (_rand((2, S, QWEN_K, QWEN_HD), dtype, cuda) for _ in range(2))
+    scale = QWEN_HD ** -0.5
+    out = ops.flash_prefill(q, k, v, scale=scale)
+    plain = flash_prefill_ref(q, k, v, scale=scale)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    if dtype == torch.float32 and S >= 1024:
+        want = flash_prefill_f64(q, k, v, scale=scale)
+        err = float((out.double() - want).abs().max())
+        err_plain = float((plain.double() - want).abs().max())
+        assert err <= 2e-5 and err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+def test_vlm_engine_on_card_matches_cpu(cuda, mode):
+    """qwen2-vl-tiny with 7 query heads over 1 kv head on the card
+    against the same engine on the CPU: same greedy tokens after a
+    branch, close logits, the kernels of the path launched; and
+    ``forward`` with patch embeds and distinct M-RoPE streams close to
+    the CPU's."""
+    cfg = dataclasses.replace(tiny_variant(get_config("qwen2-vl-7b")),
+                              n_heads=7, n_kv_heads=1)
+    lm_cpu = build_model(cfg, device="cpu")
+    params = lm_cpu.init(torch.Generator().manual_seed(0))
+    ecfg = EngineConfig(n_pages=64, page_size=8, max_batch=8,
+                        max_seq_len=64, attention=mode, trace_logits=True)
+    prompts = [list(map(int, RNG.integers(0, cfg.vocab_size, n)))
+               for n in (13, 6, 21)]
+    embeds = RNG.normal(size=(2, 6, cfg.frontend_dim)).astype(np.float32)
+    toks = RNG.integers(0, cfg.vocab_size, (2, 5))
+    pos = np.stack([np.r_[np.zeros(6), np.arange(3, 8)],
+                    np.r_[np.repeat(np.arange(2), 3), np.arange(3, 8)],
+                    np.r_[np.tile(np.arange(3), 2), np.arange(3, 8)]])
+    pos = np.broadcast_to(pos[:, None], (3, 2, 11)).astype(np.int32)
+    outs = []
+    ops.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        lm = build_model(cfg, device=dev)
+        p = tree_map(lambda a: a.to(dev), params)
+        e = PagedEngine(lm, p, ecfg, device=dev)
+        sids = e.prefill_many(prompts)
+        ids = e.branch(sids[0], 3) + e.branch(sids[2], 2)
+        logits, _ = lm.forward(p, {
+            "embeds": torch.as_tensor(embeds, device=dev),
+            "tokens": torch.as_tensor(toks, device=dev),
+            "positions": torch.as_tensor(pos.copy(), device=dev)})
+        outs.append((e.decode(ids, 6, key=0, temperature=0.0),
+                     e.logits_trace, logits.cpu()))
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs[1][2], outs[0][2], rtol=1e-4, atol=1e-4)
+    kernel = ops.PAGED if mode == "paged" else ops.TREE
+    assert kernel.launches > 0 and ops.FLASH.launches > 0

@@ -23,6 +23,7 @@ SUBMODULES = [
     "repro_torch.core.ets", "repro_torch.core.ilp",
     "repro_torch.core.clustering", "repro_torch.core.rebase",
     "repro_torch.core.tree", "repro_torch.core.serving",
+    "repro_torch.core.replica",
     "repro_torch.kvcache",
     "repro_torch.kvcache.allocator", "repro_torch.kvcache.pool",
     "repro_torch.kvcache.tree_meta", "repro_torch.kernels",
@@ -112,23 +113,37 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_slice_boundaries_raise_not_implemented():
-    """What the port leaves out raises instead of running wrong (the VLM
-    family, the families' training loss, replicas); what earlier slices
-    added (streamed prefill, swap, the MoE family) no longer raises."""
+    """What the port leaves out raises instead of running wrong (the
+    families' training loss); what earlier slices added (streamed
+    prefill, swap, the MoE family, the VLM and encoder frontends,
+    replicas) no longer raises, and an encoder is refused by the engine
+    as in the reference."""
     from repro_torch.core import SearchConfig
     from repro_torch.core.serving import ReplicaServingLoop
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("tiny-lm").__class__(
-            name="vlm-x", arch_type="vlm", n_layers=1, d_model=32,
-            n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=16), device="cpu")
+    vlm = build_model(get_config("tiny-lm").__class__(
+        name="vlm-x", arch_type="vlm", n_layers=1, d_model=32,
+        n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=16,
+        mrope_sections=(4, 2, 2), frontend_dim=8), device="cpu")
+    vp = vlm.init(torch.Generator().manual_seed(0))
+    assert vp["frontend_proj"].shape == (8, 32)
+    logits, _ = vlm.forward(vp, {"embeds": torch.zeros((1, 3, 8)),
+                                 "tokens": torch.zeros((1, 2),
+                                                       dtype=torch.long)})
+    assert logits.shape == (1, 5, 16)
     moe = build_model(tiny_variant(get_config("deepseek-moe-16b")),
                       device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="training slice"):
         moe.loss(moe.init(torch.Generator().manual_seed(0)),
                  {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="replicas"):
+    with pytest.raises(AssertionError, match="at least one backend"):
         ReplicaServingLoop([], SearchConfig(), [])
+    enc = build_model(tiny_variant(get_config("hubert-xlarge")),
+                      device="cpu")
+    with pytest.raises(ValueError, match="no decode path"):
+        PagedEngine(enc, enc.init(torch.Generator().manual_seed(0)),
+                    EngineConfig(n_pages=16, page_size=8, max_batch=2,
+                                 max_seq_len=32), device="cpu")
     with pytest.raises(ValueError, match="at least one pool page"):
         EngineConfig(page_size=8, prefill_chunk_tokens=4)
     cfg = dataclasses.replace(get_config("tiny-lm"), n_layers=1, d_model=64,

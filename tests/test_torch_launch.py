@@ -69,7 +69,7 @@ def test_serve_launcher_finishes_every_request(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--replicas", "2"], "item 4"),
+    (["--replicas", "2", "--mesh", "1"], "item 6"),
     (["--mesh", "1"], "item 6"),
     (["--dry-run"], "item 6")])
 def test_serve_launcher_leaves_out_replicas_and_meshes(argv, match):

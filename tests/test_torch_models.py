@@ -167,7 +167,7 @@ def test_bridge_rejects_mismatched_params(stacks):
     (_, jp), _, _ = stacks[0]
     (tlm, _), _, _ = stacks[1]
     bad = dict(jp, frontend_proj=np.zeros((4, 4), np.float32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="frontend_proj"):
         params_from_jax(bad, tlm.cfg, "cpu")
     small = dataclasses.replace(tlm.cfg, vocab_size=tlm.cfg.vocab_size + 1)
     with pytest.raises(ValueError):

@@ -168,7 +168,11 @@ def test_sampled_streams_depend_on_seed(stacks):
 
 
 def test_multi_replica_sweep_is_a_later_slice(stacks):
+    """The multi-replica sweep landed with the replicas slice: two
+    backends give the one-backend sweep's trees (the replica suite is
+    ``tests/test_torch_replica.py``)."""
     scfg = SearchConfig(method="ets", width=2, max_steps=1)
+    want = run_search_many(_torch_backend(stacks, "paged"), scfg, PROMPTS)
     backends = [_torch_backend(stacks, "paged") for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="replicas"):
-        run_search_many(backends, scfg, PROMPTS[:1])
+    got = run_search_many(backends, scfg, PROMPTS)
+    assert [_tree_view(r) for r in got] == [_tree_view(r) for r in want]
