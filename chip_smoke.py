@@ -116,7 +116,34 @@ exits non-zero):
                ``ReplicaServingLoop`` serves the serving phase's trace
                with every page back; (after serve)
                ``launch.serve --replicas 2`` runs to its end;
- 18. replay  — each kernel against its plain version on the largest
+ 18. train_families — (after hubert) three float32 train steps of each
+               family through ``launch.steps.build_train_step`` (remat
+               on) at full width, 8 x 64 tokens of its real vocabulary:
+               mamba2-370m whole, deepseek-moe-16b at 3 of 28 layers,
+               zamba2-7b at 24 of 81, rwkv6-7b at 8 of 32, mixtral-8x7b
+               at 2 of 32 (memory: 16 bytes per float32 param to train,
+               each line names the full size): losses, grad norms, step
+               ms, tok/s, ``mfu``, peak over the base; the card against
+               the CPU at 2 layers (zamba2: one super-block) on the same
+               params and batch (loss rtol 1e-5, grad norm 1e-4); then
+               ``launch.train --arch mamba2-370m``; no kernel runs;
+ 19. contiguous — the contiguous cache (``LM.prefill`` / ``init_cache``
+               / ``decode_step``) in float32: llama3.2-1b at full width,
+               prefill 4 x 256 then 32 decode steps against ``forward``
+               (3e-3 / 6e-3), int8 K/V decoding 32 tokens against
+               ``forward`` (rel < 0.05), 2 layers card against CPU
+               (1e-4); qwen2-vl-7b whole after a multimodal prefill (64
+               patch embeds, 64 text tokens), 8 decode steps against
+               ``forward``; mixtral-8x7b at 2 layers, a 5120-token prompt
+               through its 4096-slot window ring, 8 decode steps against
+               ``forward`` (8e-3); no kernel runs;
+ 20. steps   — ``launch/steps.py`` with ``materialize``d inputs:
+               llama3.2-1b's train_4k (batch 1), prefill_32k (batch 1)
+               and decode_32k (batch 8, its cache filled to 32767
+               tokens), then zamba2-7b whole in long mode, one long_500k
+               decode step against a 4096-slot ring filled to 524287
+               tokens: ms and peak memory of each; no kernel runs;
+ 21. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
                time, ``device_ms`` without, see ``Timer``) beside its
@@ -135,7 +162,8 @@ line ``{"kernels": [...]}`` (``launches``: the sum over the paths
 driven with the counts zeroed just before each — the main sweep in both
 modes, streamed, swap, both serving runs, the replica runs, train,
 example, serve, each family's sweeps and swap round, the VLM's sweeps,
-its forward and hubert's —
+its forward and hubert's, the families' training, the contiguous cache
+and the steps —
 ``launches_by_path`` each path's) and, last, the device line.  After
 each phase a ``seconds`` line gives its wall time.
 Imports nothing of JAX and nothing of the JAX package.
@@ -2498,6 +2526,572 @@ def phase_replicas(torch, np, models, long_prompt, costs, smi, dev="cuda"):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# slice 8: every family trains, the contiguous cache, launch/steps.py
+# ---------------------------------------------------------------------------
+
+# (arch, layers trained (None = all)): float32 training holds 16 bytes per
+# param (masters, grads, two AdamW moments), so the deeper models are cut
+# to what fits one card; each line names its full size
+TRAIN_FAMILIES = (("mamba2-370m", None), ("deepseek-moe-16b", 3),
+                  ("zamba2-7b", 24), ("rwkv6-7b", 8), ("mixtral-8x7b", 2))
+TRAIN_FAMILY_STEPS = 3
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 8, 64
+# card vs CPU: 2 layers (zamba2: one super-block of attn_every layers) on
+# 2 x 32 tokens, the same params and batch, loss and global grad norm
+TRAIN_FAMILY_CPU_BATCH, TRAIN_FAMILY_CPU_SEQ = 2, 32
+# contiguous cache, llama3.2-1b at full width in float32: prefill 4 x 256
+# tokens, then 32 decode steps, each against forward at the reference's
+# bars (tests/test_models.py); at 2 layers the card against the CPU
+CONTIG_BATCH, CONTIG_PROMPT, CONTIG_DECODE = 4, 256, 32
+TOL_CONTIG_PREFILL, TOL_CONTIG_DECODE, TOL_CONTIG_RING = 3e-3, 6e-3, 8e-3
+CONTIG_CPU_LAYERS, CONTIG_CPU_PROMPT, CONTIG_CPU_DECODE = 2, 64, 4
+TOL_CONTIG_CPU = 1e-4
+# qwen2-vl-7b whole in float32: the vlm_frontend batch (64 patch embeds
+# before 64 text tokens), then decode steps
+VLM_DECODE = 8
+# mixtral-8x7b at 2 layers in float32 with its 4096-token window: the
+# blocked attention path takes prompts in 1024-key tiles, so 5120 is the
+# shortest prompt past the window; forward runs over 6144 tokens (causal:
+# the tokens after the decoded ones change nothing before them).  The
+# capacity factor is set to the expert count, dropless as tiny_variant
+# has it, so that forward and decode route every replica alike.
+RING_LAYERS, RING_PROMPT, RING_FORWARD, RING_DECODE = 2, 5120, 6144, 8
+# int8 KV against full precision (the reference's bar)
+INT8_BATCH, INT8_STEPS, TOL_INT8_REL = 2, 32, 0.05
+# launch/steps.py on one card: (shape, batch cut to); llama3.2-1b as its
+# config says (bf16 compute, float32 masters for training)
+STEPS_LLAMA = (("train_4k", 1), ("prefill_32k", 1), ("decode_32k", 8))
+
+
+def train_shape(batch, seq):
+    from repro_torch.configs import InputShape
+    return InputShape("train_families", seq, batch, "train")
+
+
+def spec_param_count(cfg):
+    """Params of ``cfg`` from its specs (nothing allocated)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import LM, tree_leaves
+    specs = steps.params_specs(LM(cfg, device="cpu"), serve=False)
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
+
+
+def loss_and_grad_norm(torch, model, params, batch):
+    """(loss, global grad norm) of ``model.loss`` at ``params``."""
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.training.optimizer import global_norm
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), float(global_norm(list(grads)))
+
+
+def train_family_cpu_check(torch, cfg, dev, cpu):
+    """One loss and grad norm of ``cfg`` cut to 2 layers (a hybrid to one
+    super-block) on ``dev`` and on the CPU, the same params and batch."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import tree_map
+    layers = cfg.attn_every if cfg.arch_type == "hybrid" else 2
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    shape = train_shape(TRAIN_FAMILY_CPU_BATCH, TRAIN_FAMILY_CPU_SEQ)
+    model = steps.build_model_for(cut, shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(131)
+    params = model.init(gen)
+    batch = steps.materialize(steps.input_specs(cut, shape), dev, gen)
+    host_params = tree_map(lambda a: a.to(cpu), params)
+    host_batch = {k: v.to(cpu) for k, v in batch.items()}
+    card = loss_and_grad_norm(torch, model, params, batch)
+    del model, params, batch
+    host = loss_and_grad_norm(
+        torch, steps.build_model_for(cut, shape, device=cpu), host_params,
+        host_batch)
+    row = {"n_layers": layers, "tokens": [TRAIN_FAMILY_CPU_BATCH,
+                                          TRAIN_FAMILY_CPU_SEQ],
+           "loss": [card[0], host[0]], "grad_norm": [card[1], host[1]],
+           "loss_rel_diff": abs(card[0] - host[0]) / abs(host[0]),
+           "grad_norm_rel_diff": abs(card[1] - host[1]) / abs(host[1]),
+           "rtol_loss": RTOL_TRAIN_LOSS, "rtol_grad_norm": RTOL_TRAIN_GNORM}
+    if row["loss_rel_diff"] > RTOL_TRAIN_LOSS or \
+            row["grad_norm_rel_diff"] > RTOL_TRAIN_GNORM:
+        fail(f"{cfg.name}: a training step on {dev} differs from the "
+             f"CPU's: {row}")
+    return row
+
+
+def train_family(torch, np, arch, n_layers, smi, dev="cuda", cpu="cpu",
+                 shrink=None):
+    """``TRAIN_FAMILY_STEPS`` float32 train steps of ``arch`` at full width
+    (``n_layers`` of its layers) through ``steps.build_train_step`` (remat
+    on, as ``build_model_for`` builds it) on ``TRAIN_FAMILY_BATCH`` x
+    ``TRAIN_FAMILY_SEQ`` tokens of its real vocabulary; then the card
+    against the CPU at 2 layers.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import adamw_init
+    shrink = shrink or (lambda c: c)
+    full = shrink(dataclasses.replace(get_config(arch), dtype="float32"))
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    why = None
+    if cfg.n_layers != full.n_layers:
+        n_full = spec_param_count(full)
+        why = (f"memory: {full.n_layers} layers are {n_full:.3g} params, "
+               f"{16 * n_full / 1e9:.0f} GB to train in float32")
+    shape = train_shape(TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ)
+    base = fresh_peak(torch, dev)
+    model = steps.build_model_for(cfg, shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(130)
+    params = model.init(gen)
+    batch = steps.materialize(steps.input_specs(cfg, shape), dev, gen)
+    opt = adamw_init(params)
+    log = []
+    step = steps.build_train_step(model, on_step=lambda l, g: log.append(
+        (l, g)))
+    ops.reset_launch_counts()
+    ms = []
+    for _ in range(TRAIN_FAMILY_STEPS):
+        (params, opt, _), t = event_ms(torch, dev,
+                                       lambda: step(params, opt, batch))
+        ms.append(t)
+    launches = launch_counts(ops)
+    peak = peak_bytes(torch, dev)
+    losses = [float(l) for l, _ in log]
+    norms = [float(g) for _, g in log]
+    n_params = param_count(params)
+    del model, params, opt, batch, step, log
+    fresh_peak(torch, dev)
+    tokens = TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ
+    steady = float(np.mean(ms[1:]))
+    flops = 3 * cfg.flops_per_token(TRAIN_FAMILY_SEQ) * tokens
+    line = {"phase": "train_families", "nvidia_smi": smi, "arch": arch,
+            "arch_type": cfg.arch_type, "n_layers": cfg.n_layers,
+            "n_layers_full": full.n_layers, "depth_cut": why,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "params": n_params, "dtype": "float32", "remat": True,
+            "batch": TRAIN_FAMILY_BATCH, "seq": TRAIN_FAMILY_SEQ,
+            "losses": losses, "grad_norms": norms, "step_ms": ms,
+            "mean_step_ms_after_first": steady,
+            "tok_s": tokens / (steady / 1e3),
+            "flops_per_step": flops,
+            "mfu": flops / (steady / 1e3) / PEAK_FLOPS["torch.float32"],
+            "memory_allocated_before": base,
+            "max_memory_allocated": peak, "peak_over_base_bytes": peak - base,
+            "launches": launches,
+            "cpu_vs_card": train_family_cpu_check(torch, cfg, dev, cpu)}
+    emit(line)
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
+        fail(f"train_families {arch}: non-finite loss or grad norm")
+    if any(launches.values()):
+        fail(f"train_families {arch}: training runs plain attention, yet "
+             f"kernels launched: {launches}")
+    fresh_peak(torch, dev)
+    return launches
+
+
+def phase_train_families(torch, np, smi, dev="cuda", cpu="cpu", shrink=None,
+                         argv=("--steps", "3", "--batch", "8")):
+    """Every family's training (``TRAIN_FAMILIES``), then
+    ``launch.train --arch mamba2-370m`` on ``dev``.  Returns the summed
+    launches (none: training runs no kernel of the port)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    total = {k.name: 0 for k in ops.KERNELS}
+    for arch, n_layers in TRAIN_FAMILIES:
+        for k, n in train_family(torch, np, arch, n_layers, smi, dev, cpu,
+                                 shrink).items():
+            total[k] += n
+    base = fresh_peak(torch, dev)
+    ops.reset_launch_counts()
+    (model, _, hist), wall = timed_s(torch, dev, lambda: launch_train.main(
+        ["--arch", "mamba2-370m", *argv, "--device", str(dev)]))
+    launches = launch_counts(ops)
+    emit({"phase": "train_families_launcher", "nvidia_smi": smi,
+          "argv": ["--arch", "mamba2-370m", *argv], "arch": model.cfg.name,
+          "n_layers": model.cfg.n_layers, "vocab": model.cfg.vocab_size,
+          "remat": model.remat, "losses": hist, "wall_s": wall,
+          "memory_allocated_before": base,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "launches": launches})
+    if not hist or not np.all(np.isfinite(hist)):
+        fail(f"launch.train --arch mamba2-370m: losses {hist}")
+    for k, n in launches.items():
+        total[k] += n
+    del model
+    fresh_peak(torch, dev)
+    return total
+
+
+def contiguous_run(torch, lm, params, batch, prompt, n_dec, dev):
+    """``forward`` over ``batch`` (tokens, and where given patch embeds
+    before them and their positions), ``prefill`` of its first ``prompt``
+    positions into a cache of ``prompt + n_dec``, then ``n_dec`` decode
+    steps on the text tokens after the prompt: the gap of each step's
+    logits to forward's at its position, the times, each step's logits
+    and the last cache."""
+    n_img = batch["embeds"].shape[1] if "embeds" in batch else 0
+    text = batch["tokens"]
+    first = prompt - n_img                  # the first decoded text token
+    head = dict(batch, tokens=text[:, :first])
+    if "positions" in batch:
+        head["positions"] = batch["positions"][..., :prompt]
+    with torch.no_grad():
+        full, fwd_ms = event_ms(torch, dev,
+                                lambda: lm.forward(params, batch)[0])
+        (lg, cache), pre_ms = event_ms(torch, dev, lambda: lm.prefill(
+            params, head, prompt + n_dec))
+        gaps = [float((lg - full[:, prompt - 1]).abs().max())]
+        logits, dec_ms = [lg], []
+        for t in range(n_dec):
+            tok = text[:, first + t:first + t + 1]
+            (lg, cache), ms = event_ms(torch, dev, lambda: lm.decode_step(
+                params, tok, cache))
+            gaps.append(float((lg - full[:, prompt + t]).abs().max()))
+            logits.append(lg)
+            dec_ms.append(ms)
+        scale = float(full[:, prompt - 1:prompt + n_dec].abs().max())
+    return {"prefill_gap": gaps[0], "decode_gap_max": max(gaps[1:]),
+            "max_abs_logit": scale, "forward_ms": fwd_ms,
+            "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "decode_ms_mean_after_first": float(np.mean(dec_ms[1:]))}, \
+        logits, cache
+
+
+def check_gaps(what, row, tol_decode):
+    if row["prefill_gap"] > TOL_CONTIG_PREFILL or \
+            row["decode_gap_max"] > tol_decode:
+        fail(f"contiguous {what}: prefill / decode differ from forward by "
+             f"{row['prefill_gap']} / {row['decode_gap_max']} (bars "
+             f"{TOL_CONTIG_PREFILL} / {tol_decode})")
+
+
+def full_width(torch, arch, dev, seed, shrink=None, **replace):
+    """(LM, params) of ``arch`` at full width in float32 (``replace``
+    overrides config fields), random weights from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    shrink = shrink or (lambda c: c)
+    cfg = shrink(dataclasses.replace(get_config(arch), dtype="float32",
+                                     **replace))
+    lm = build_model(cfg, device=dev)
+    return lm, lm.init(torch.Generator(device=dev).manual_seed(seed))
+
+
+def contiguous_llama(torch, np, smi, dev, cpu, shrink):
+    """llama3.2-1b: prefill + decode against forward; int8 KV against full
+    precision; the card against the CPU at 2 layers."""
+    from repro_torch.bridge import cache_to_numpy
+    from repro_torch.models.model import LM, tree_map
+    lm, params = full_width(torch, "llama3.2-1b", dev, 140, shrink)
+    gen = torch.Generator(device=dev).manual_seed(141)
+    toks = torch.randint(0, lm.cfg.vocab_size,
+                         (CONTIG_BATCH, CONTIG_PROMPT + CONTIG_DECODE),
+                         generator=gen, device=dev)
+    row, _, cache = contiguous_run(torch, lm, params, {"tokens": toks},
+                                   CONTIG_PROMPT, CONTIG_DECODE, dev)
+    row["cache_k_shape"] = list(cache["groups"][0]["k"].shape)
+    del cache
+    # int8 K/V from init_cache, one token at a time, against forward
+    lm_q = LM(lm.cfg, quant_kv=True, device=dev)
+    itoks = toks[:INT8_BATCH, :INT8_STEPS]
+    rel, dtypes = {}, {}
+    with torch.no_grad():
+        full = lm.forward(params, {"tokens": itoks})[0]
+        for name, m in (("int8", lm_q), ("fp", lm)):
+            cache = m.init_cache(INT8_BATCH, INT8_STEPS)
+            k = cache["groups"][0]["k"]
+            dtypes[name] = str((k["q"] if isinstance(k, dict) else k).dtype)
+            worst = 0.0
+            for t in range(INT8_STEPS):
+                lg, cache = m.decode_step(params, itoks[:, t:t + 1], cache)
+                ref = full[:, t]
+                worst = max(worst, float((lg - ref).abs().max()
+                                         / (ref.abs().max() + 1e-9)))
+            rel[name] = worst
+    row["int8"] = {"batch": INT8_BATCH, "steps": INT8_STEPS,
+                   "max_rel_logit_err": rel["int8"],
+                   "fp_max_rel_logit_err": rel["fp"],
+                   "cache_dtypes": dtypes, "tol_rel": TOL_INT8_REL}
+    # the card against the CPU at 2 layers
+    cut = dataclasses.replace(lm.cfg, n_layers=CONTIG_CPU_LAYERS)
+    del lm, lm_q, params, full
+    fresh_peak(torch, dev)
+    m_dev = LM(cut, device=dev)
+    p_dev = m_dev.init(torch.Generator(device=dev).manual_seed(142))
+    m_cpu = LM(cut, device=cpu)
+    p_cpu = tree_map(lambda a: a.to(cpu), p_dev)
+    t = toks[:, :CONTIG_CPU_PROMPT + CONTIG_CPU_DECODE]
+    _, lg_dev, c_dev = contiguous_run(torch, m_dev, p_dev, {"tokens": t},
+                                      CONTIG_CPU_PROMPT, CONTIG_CPU_DECODE,
+                                      dev)
+    _, lg_cpu, c_cpu = contiguous_run(torch, m_cpu, p_cpu,
+                                      {"tokens": t.to(cpu)},
+                                      CONTIG_CPU_PROMPT, CONTIG_CPU_DECODE,
+                                      cpu)
+    logit_gap = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(lg_dev, lg_cpu))
+    a, b = cache_to_numpy(c_dev, m_dev), cache_to_numpy(c_cpu, m_cpu)
+    cache_gap = max(float(np.abs(a["groups"][0][k] - b["groups"][0][k]).max())
+                    for k in ("k", "v"))
+    pos_equal = bool((a["groups"][0]["pos"] == b["groups"][0]["pos"]).all())
+    row["cpu_vs_card"] = {"n_layers": CONTIG_CPU_LAYERS,
+                          "prompt": CONTIG_CPU_PROMPT,
+                          "decode_steps": CONTIG_CPU_DECODE,
+                          "max_abs_logit_diff": logit_gap,
+                          "max_abs_kv_diff": cache_gap,
+                          "positions_equal": pos_equal,
+                          "tol": TOL_CONTIG_CPU}
+    del m_dev, p_dev, c_dev
+    return row
+
+
+def phase_contiguous(torch, np, smi, dev="cuda", cpu="cpu", shrink=None):
+    """The contiguous cache on the card (``LM.prefill`` / ``init_cache`` /
+    ``decode_step``): llama3.2-1b (decode against forward, int8 KV, card
+    against CPU), qwen2-vl-7b whole after a multimodal prefill, and
+    mixtral-8x7b's 4096-slot window ring.  Returns the launches (none:
+    the contiguous cache is plain attention, as in the reference)."""
+    from repro_torch.kernels import ops
+    base = fresh_peak(torch, dev)
+    ops.reset_launch_counts()
+    llama = contiguous_llama(torch, np, smi, dev, cpu, shrink)
+    emit({"phase": "contiguous", "nvidia_smi": smi, "arch": "llama3.2-1b",
+          "dtype": "float32", "batch": CONTIG_BATCH,
+          "prompt": CONTIG_PROMPT, "decode_steps": CONTIG_DECODE, **llama,
+          "tol_prefill": TOL_CONTIG_PREFILL, "tol_decode": TOL_CONTIG_DECODE,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "memory_allocated_before": base})
+    check_gaps("llama3.2-1b", llama, TOL_CONTIG_DECODE)
+    if llama["int8"]["max_rel_logit_err"] > TOL_INT8_REL:
+        fail(f"contiguous int8: {llama['int8']}")
+    cc = llama["cpu_vs_card"]
+    if max(cc["max_abs_logit_diff"], cc["max_abs_kv_diff"]) > \
+            TOL_CONTIG_CPU or not cc["positions_equal"]:
+        fail(f"contiguous: card and CPU differ: {cc}")
+    # qwen2-vl-7b whole: multimodal prefill, then decode
+    base = fresh_peak(torch, dev)
+    lm, params = full_width(torch, "qwen2-vl-7b", dev, 150, shrink)
+    batch = vlm_frontend_batch(torch, lm.cfg, dev)
+    # the text counts on from the patches' count, not from the grid's side:
+    # a contiguous cache writes each token at the slot of its position, so
+    # positions that restart lower would overwrite the prompt (ROADMAP F5)
+    n_patch = batch["embeds"].shape[1]
+    batch["positions"][:, :, n_patch:] = torch.arange(
+        n_patch, n_patch + batch["tokens"].shape[1], dtype=torch.int32,
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(151)
+    more = torch.randint(0, lm.cfg.vocab_size, (1, VLM_DECODE),
+                         generator=gen, device=dev)
+    S = batch["positions"].shape[-1]
+    start = int(batch["positions"][0, 0, -1]) + 1   # the prefill's next_pos
+    after = torch.arange(start, start + VLM_DECODE, dtype=torch.int32,
+                         device=dev).expand(3, 1, VLM_DECODE)
+    batch = {"embeds": batch["embeds"],
+             "tokens": torch.cat([batch["tokens"], more], dim=1),
+             "positions": torch.cat([batch["positions"], after], dim=-1)}
+    vlm, logits, cache = contiguous_run(torch, lm, params, batch, S,
+                                        VLM_DECODE, dev)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    emit({"phase": "contiguous", "nvidia_smi": smi, "arch": "qwen2-vl-7b",
+          "dtype": "float32", "n_layers": lm.cfg.n_layers,
+          "params": param_count(params),
+          "patch_embeds": int(batch["embeds"].shape[1]),
+          "prompt_positions": S, "decode_steps": VLM_DECODE,
+          "next_pos_after_prefill": start, "finite": finite,
+          "next_pos": cache["next_pos"].tolist(), **vlm,
+          "tol_prefill": TOL_CONTIG_PREFILL, "tol_decode": TOL_CONTIG_DECODE,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "memory_allocated_before": base})
+    if not finite or cache["next_pos"].tolist() != [start + VLM_DECODE]:
+        fail(f"contiguous qwen2-vl-7b: finite {finite}, next_pos "
+             f"{cache['next_pos'].tolist()}")
+    check_gaps("qwen2-vl-7b", vlm, TOL_CONTIG_DECODE)
+    del lm, params, batch, logits, cache
+    # mixtral-8x7b: a prompt past its 4096-token window, through the ring
+    base = fresh_peak(torch, dev)
+    from repro_torch.configs import get_config
+    moe = dataclasses.replace(get_config("mixtral-8x7b").moe,
+                              capacity_factor=float(
+                                  get_config("mixtral-8x7b").moe.n_experts))
+    lm, params = full_width(torch, "mixtral-8x7b", dev, 160, shrink,
+                            n_layers=RING_LAYERS, moe=moe)
+    window = lm.cfg.sliding_window
+    gen = torch.Generator(device=dev).manual_seed(161)
+    prompt, forward = (RING_PROMPT, RING_FORWARD) if shrink is None \
+        else (96, 128)
+    toks = torch.randint(0, lm.cfg.vocab_size, (1, forward), generator=gen,
+                         device=dev)
+    ring, _, cache = contiguous_run(torch, lm, params, {"tokens": toks},
+                                    prompt, RING_DECODE, dev)
+    slots = int(cache["groups"][0]["k"].shape[2])
+    emit({"phase": "contiguous", "nvidia_smi": smi, "arch": "mixtral-8x7b",
+          "dtype": "float32", "n_layers": RING_LAYERS,
+          "n_layers_full": get_config("mixtral-8x7b").n_layers,
+          "depth_cut": "the smoke's time and memory: 2 full-width layers "
+                       "hold the ring, the window mask and the MoE",
+          "capacity_factor": lm.cfg.moe.capacity_factor,
+          "params": param_count(params), "window": window,
+          "prompt": prompt, "forward_tokens": forward,
+          "decode_steps": RING_DECODE, "ring_slots": slots, **ring,
+          "tol_prefill": TOL_CONTIG_PREFILL, "tol_decode": TOL_CONTIG_RING,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "memory_allocated_before": base})
+    if slots != window or prompt <= window:
+        fail(f"contiguous mixtral: {slots} ring slots for a {window} window, "
+             f"prompt {prompt}")
+    check_gaps("mixtral-8x7b", ring, TOL_CONTIG_RING)
+    del lm, params, cache, toks
+    launches = launch_counts(ops)
+    if any(launches.values()):
+        fail(f"contiguous: the cache runs plain attention, yet kernels "
+             f"launched: {launches}")
+    fresh_peak(torch, dev)
+    return launches
+
+
+def fill_cache(torch, cache, filled, gen):
+    """A decode cache as after ``filled`` tokens: every attention cache
+    holds random K/V at the slots of the last positions before ``filled``
+    (slot ``pos % C``; a linear cache of C > filled holds them all), and
+    ``next_pos`` is ``filled``.  Recurrent states stay zero."""
+    def walk(node):
+        if isinstance(node, list):
+            for x in node:
+                walk(x)
+        elif isinstance(node, dict) and "pos" in node:
+            C = node["pos"].shape[-1]
+            n = min(filled, C)
+            p = torch.arange(filled - n, filled, device=node["pos"].device)
+            node["pos"][..., p % C] = p.to(node["pos"].dtype)
+            for k in ("k", "v"):
+                node[k].copy_(torch.randn(node[k].shape, generator=gen,
+                                          dtype=node[k].dtype,
+                                          device=node[k].device))
+        elif isinstance(node, dict):
+            for x in node.values():
+                walk(x)
+
+    walk(cache["groups"])
+    cache["next_pos"].fill_(filled)
+    return cache
+
+
+def steps_line(torch, smi, arch, shape, cut, model, ms, base, dev, **kw):
+    emit({"phase": "steps", "nvidia_smi": smi, "arch": arch,
+          "shape": shape.name, "kind": shape.kind, "seq_len": shape.seq_len,
+          "global_batch": shape.global_batch, "batch_on_card": cut,
+          "long_mode": model.long_mode, "window": model.window,
+          "compute_dtype": str(model.compute_dtype), "ms": ms,
+          "memory_allocated_before": base,
+          "max_memory_allocated": peak_bytes(torch, dev),
+          "peak_over_base_bytes": peak_bytes(torch, dev) - base, **kw})
+
+
+def phase_steps(torch, np, smi, dev="cuda", shrink=None, shapes=None):
+    """``launch/steps.py`` on the card: llama3.2-1b's train_4k, prefill_32k
+    and decode_32k steps (inputs from ``materialize`` at a batch cut to
+    one card), then zamba2-7b whole in long mode for one long_500k decode
+    step against its cache (``init_cache(1, 524288)``: a 4096-slot ring
+    per shared attention block).  ``shapes`` overrides the input shapes
+    (a rehearsal on the CPU).  Returns the launches (none)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import adamw_init
+    shrink = shrink or (lambda c: c)
+    shapes = shapes or INPUT_SHAPES
+    ops.reset_launch_counts()
+    cfg = shrink(get_config("llama3.2-1b"))
+    gen = torch.Generator(device=dev).manual_seed(170)
+    base = fresh_peak(torch, dev)
+    model = steps.build_model_for(cfg, shapes["train_4k"], device=dev)
+    params = model.init(gen)
+    for name, cut in STEPS_LLAMA:
+        shape = shapes[name]
+        cs = dataclasses.replace(shape, global_batch=cut)
+        batch = steps.materialize(steps.input_specs(cfg, cs), dev, gen)
+        if shape.kind == "train":
+            opt = adamw_init(params)
+            step = steps.build_train_step(model)
+            losses, ms = [], []
+            for _ in range(2):
+                (params, opt, loss), t = event_ms(
+                    torch, dev, lambda: step(params, opt, batch))
+                losses.append(float(loss))
+                ms.append(t)
+            steps_line(torch, smi, cfg.name, shape, cut, model, ms, base, dev,
+                       losses=losses, remat=model.remat,
+                       tok_s=cut * shape.seq_len / (ms[-1] / 1e3))
+            if not np.all(np.isfinite(losses)):
+                fail(f"steps {name}: losses {losses}")
+            del opt, step
+            with torch.no_grad():                  # serving from here on
+                params = model.cast_params(params)
+        elif shape.kind == "prefill":
+            (logits, cache), ms = event_ms(torch, dev, lambda: (
+                steps.build_prefill_step(model, shape.seq_len)(params,
+                                                               batch)))
+            k_shape = list(cache["groups"][0]["k"].shape)
+            steps_line(torch, smi, cfg.name, shape, cut, model, [ms], base,
+                       dev, cache_k_shape=k_shape,
+                       next_pos=cache["next_pos"].tolist(),
+                       tok_s=cut * shape.seq_len / (ms / 1e3),
+                       finite=bool(torch.isfinite(logits).all()))
+            if not torch.isfinite(logits).all() or \
+                    k_shape[2] != shape.seq_len:
+                fail(f"steps {name}: cache {k_shape}")
+            del logits, cache
+        else:
+            cache = fill_cache(torch, steps.materialize(
+                steps.cache_specs(model, cs), dev, gen), shape.seq_len - 1,
+                gen)
+            decode = steps.build_decode_step(model)
+            ms = []
+            for _ in range(2):
+                (logits, cache), t = event_ms(
+                    torch, dev, lambda: decode(params, batch, cache))
+                ms.append(t)
+            steps_line(torch, smi, cfg.name, shape, cut, model, ms, base, dev,
+                       cache_k_shape=list(cache["groups"][0]["k"].shape),
+                       next_pos=cache["next_pos"].tolist()[:1],
+                       finite=bool(torch.isfinite(logits).all()))
+            if not torch.isfinite(logits).all():
+                fail(f"steps {name}: non-finite logits")
+            del logits, cache
+        base = fresh_peak(torch, dev)
+    del model, params
+    # zamba2-7b whole, long mode, one long_500k decode step
+    base = fresh_peak(torch, dev)
+    shape = shapes["long_500k"]
+    cfg = shrink(get_config("zamba2-7b"))
+    model = steps.build_model_for(cfg, shape, device=dev)
+    params = model.cast_params(model.init(gen))
+    cache = fill_cache(torch, steps.materialize(
+        steps.cache_specs(model, shape), dev, gen), shape.seq_len - 1, gen)
+    slots = int(cache["groups"][0]["attn"]["k"].shape[2])
+    batch = steps.materialize(steps.input_specs(cfg, shape), dev, gen)
+    decode = steps.build_decode_step(model)
+    ms = []
+    for _ in range(2):
+        (logits, cache), t = event_ms(torch, dev,
+                                      lambda: decode(params, batch, cache))
+        ms.append(t)
+    steps_line(torch, smi, cfg.name, shape, shape.global_batch, model, ms,
+               base, dev, ring_slots=slots, n_layers=cfg.n_layers,
+               params=param_count(params),
+               next_pos=cache["next_pos"].tolist(),
+               finite=bool(torch.isfinite(logits).all()))
+    if slots != model.window or not torch.isfinite(logits).all():
+        fail(f"steps long_500k: {slots} ring slots, window {model.window}")
+    del model, params, cache, logits
+    launches = launch_counts(ops)
+    if any(launches.values()):
+        fail(f"steps: plain attention, yet kernels launched: {launches}")
+    fresh_peak(torch, dev)
+    return launches
+
+
 def run_phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, then one line with its seconds."""
     t0 = time.perf_counter()
@@ -2551,6 +3145,12 @@ def main() -> int:
     by_path["vlm:forward"] = run_phase("vlm_frontend", phase_vlm_frontend,
                                        torch, np, smi)
     by_path["hubert"] = run_phase("hubert", phase_hubert, torch, np, smi)
+    by_path["train_families"] = run_phase("train_families",
+                                          phase_train_families, torch, np,
+                                          smi)
+    by_path["contiguous"] = run_phase("contiguous", phase_contiguous, torch,
+                                      np, smi)
+    by_path["steps"] = run_phase("steps", phase_steps, torch, np, smi)
     from repro_torch.kernels import ops
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in ops.KERNELS}

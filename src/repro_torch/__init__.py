@@ -4,9 +4,11 @@ reference).
 Layout mirrors ``repro``: ``configs``, ``core`` (host-side search, copied
 from the reference), ``kvcache`` (allocator, tree metadata, paged pool),
 ``kernels`` (hand-written CUDA kernels for Hopper plus their plain
-PyTorch versions), ``models`` (dense GQA decoder and encoder),
-``serving`` (paged engine, sampler, search backend) and ``bridge``
-(reference params -> port params).
+PyTorch versions), ``models`` (every family: dense, VLM, encoder, MoE,
+SSM, hybrid; the contiguous KV/state cache), ``serving`` (paged engine,
+sampler, search backend), ``training``, ``launch`` (train and serve
+launchers, the step builders), ``eval`` and ``bridge`` (reference
+params and caches <-> the port's).
 
 The package imports ``torch``, numpy and scipy only.  Entry points run
 on the CUDA device unless the caller passes ``device="cpu"``; on the

@@ -12,6 +12,15 @@ block and int8 ``{"q", "s"}`` expert banks keep their structure and
 dtypes.
 ``params_to_numpy`` is its inverse, for any port tree (trained params,
 AdamW state).
+
+``cache_from_numpy`` / ``cache_to_numpy`` carry the contiguous decode
+cache (``LM.prefill`` / ``init_cache`` / ``decode_step``) across: every
+plan's per-group tree (attention ``{"k","v","pos"}``, int8 ``{"q","s"}``
+K/V leaves, rwkv ``{"S","x_prev"}``, mamba ``{"h","conv"}``, hybrid
+``{"mamba","attn"}``) and ``next_pos``, leaves stacked over layers as in
+the reference, so a decode of one package continues a prefill of the
+other.  bfloat16 leaves cross as float32 numpy arrays (numpy has no
+bfloat16 without an extension) and come back as bfloat16.
 """
 from __future__ import annotations
 
@@ -65,3 +74,41 @@ def params_to_numpy(tree: Any) -> Any:
     """A port tree (nested dicts/lists of tensors) as the same tree of
     numpy arrays in the reference layout, on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # an extension dtype (ml_dtypes)
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(np.array(a), device=device)
+
+
+def _check_cache(cache, model) -> None:
+    groups = cache.get("groups")
+    if set(cache) != {"groups", "next_pos"} or groups is None \
+            or len(groups) != len(model.plan):
+        raise ValueError(f"a cache of {model.cfg.name} holds 'groups' "
+                         f"({len(model.plan)} of them) and 'next_pos'")
+
+
+def cache_from_numpy(np_cache: Dict[str, Any], model, device=None
+                     ) -> Dict[str, Any]:
+    """A reference cache tree (numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, cache)``) as the port's cache of
+    ``model`` on ``device`` (default the model's)."""
+    _check_cache(np_cache, model)
+    dev = model.device if device is None else resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), dict(np_cache))
+
+
+def cache_to_numpy(cache: Dict[str, Any], model) -> Dict[str, Any]:
+    """A port cache as the same tree of numpy arrays on the host (the
+    reference's layout); bfloat16 leaves as float32."""
+    _check_cache(cache, model)
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(host, cache)

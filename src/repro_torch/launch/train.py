@@ -1,14 +1,16 @@
 """Training launcher (port of ``repro.launch.train``, local mode).
 
-Trains ``--arch`` (or its reduced variant with ``--tiny``) as a float32
-model over the arithmetic task's vocabulary, on the CUDA device unless
-``--device`` names another, and optionally writes a checkpoint:
+Trains ``--arch`` of any family (or its reduced variant with ``--tiny``)
+as a float32 model over the arithmetic task's vocabulary, without remat
+(as the reference's launcher), on the CUDA device unless ``--device``
+names another, and optionally writes a checkpoint:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-lm \\
         --steps 100 --ckpt /tmp/lm.npz
 
 ``--dry-run`` (lowering the distributed step on a production mesh) is
-not ported: meshes are ``ROADMAP.md`` queue 1 item 6.
+not ported: meshes are the port's final slice (``ROADMAP.md`` queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -26,14 +28,15 @@ from ..training.task import VOCAB_SIZE, ArithmeticTask
 def model_and_params(arch: str, *, tiny: bool = False, device=None,
                      seed: int = 0, with_value_head: bool = False):
     """The launcher's model: ``arch`` (reduced with ``tiny``), float32,
-    vocabulary ``max(VOCAB_SIZE, 32)``, params from a generator seeded
-    ``seed`` on the model's device."""
+    vocabulary ``max(VOCAB_SIZE, 32)``, no remat, params from a generator
+    seeded ``seed`` on the model's device."""
     cfg = get_config(arch)
     if tiny:
         cfg = tiny_variant(cfg)
     cfg = dataclasses.replace(cfg, vocab_size=max(VOCAB_SIZE, 32),
                               dtype="float32")
-    model = build_model(cfg, with_value_head=with_value_head, device=device)
+    model = build_model(cfg, with_value_head=with_value_head, remat=False,
+                        device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     return model, model.init(gen)
 
@@ -58,7 +61,8 @@ def main(argv=None):
     if args.dry_run:
         raise NotImplementedError(
             "--dry-run lowers the train step on a production mesh: not "
-            "ported (ROADMAP.md queue 1 item 6, meshes)")
+            "ported; meshes are the port's final slice (ROADMAP.md queue 1 "
+            "item 6)")
     model, params = model_and_params(args.arch, tiny=args.tiny,
                                      device=args.device)
     task = ArithmeticTask(n_ops=3, seq_len=64)

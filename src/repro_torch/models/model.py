@@ -7,11 +7,21 @@ is a plain copy.
 
   * ``init(generator)``            — parameter init (fp32 master params)
   * ``forward(params, batch)``     — full-sequence logits (+ MoE aux)
-  * ``loss(params, batch)``        — next-token CE (training; dense,
-                                     VLM and encoder plans)
+  * ``loss(params, batch)``        — CE loss (+ MoE load-balance aux)
+  * ``prefill(params, batch, cache_len)`` — last logits + contiguous
+                                     KV/state cache
+  * ``decode_step(params, tok, cache)``   — one-token step on that cache
+  * ``init_cache(batch, cache_len)`` — empty cache tree
   * ``hidden(params, batch)``      — final-layer normed hidden states
   * ``reward(params, batch)``      — PRM scalar head (with_value_head)
-  * ``embed_inputs`` / ``logits``  — the pieces the paged engine composes
+  * ``embed_inputs`` / ``logits`` / ``ffn`` / ``*_layer_*`` — the pieces
+                                     the paged engine composes
+
+Caches and states are stacked over each group's layers on a leading
+axis, in the reference's layout.  ``long_mode`` applies the config's
+long-context window; ``quant_kv`` makes ``init_cache`` store K/V as int8;
+``remat`` recomputes each layer in the backward pass (the reference's
+``jax.checkpoint`` on each scan body).
 
 Family specifics, as in the reference:
   dense/vlm/encoder — GQA attention (+ M-RoPE for VLM, bidirectional
@@ -34,13 +44,16 @@ to the compute type where they read it.
 
 ``forward``, ``loss``, ``hidden`` and ``reward`` record autograd where
 the params require grad (training); the serving callers run them under
-``torch.no_grad()``.
+``torch.no_grad()``.  The layer groups run as Python loops over the
+stacked params (``_scan``), where the reference scans.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from . import attention as A
@@ -102,10 +115,14 @@ def compute_dtype_of(cfg) -> torch.dtype:
 
 
 class LM:
-    def __init__(self, cfg, *, with_value_head: bool = False,
-                 device=None):
+    def __init__(self, cfg, *, long_mode: bool = False,
+                 with_value_head: bool = False, remat: bool = True,
+                 quant_kv: bool = False, device=None):
         self.cfg = cfg
+        self.long_mode = long_mode
         self.with_value_head = with_value_head
+        self.remat = remat
+        self.quant_kv = quant_kv   # int8 K/V in init_cache
         self.device = resolve_device(device)
         # fp32 products on the card run in full fp32, as the reference
         # computes them: TF32 keeps ~3 decimal digits and would break the
@@ -114,6 +131,21 @@ class LM:
         torch.backends.cudnn.allow_tf32 = False
         self.plan = cfg.layer_plan()
         self.compute_dtype = compute_dtype_of(cfg)
+
+    @property
+    def window(self) -> int:
+        """Effective attention window (0 = unlimited): the long-context
+        window in long mode where the config has one, else
+        ``cfg.sliding_window``."""
+        cfg = self.cfg
+        if self.long_mode and cfg.long_context_window:
+            return cfg.long_context_window
+        return cfg.sliding_window
+
+    def attn_cache_len(self, seq_len: int) -> int:
+        """Cache length an attention layer needs for ``seq_len``."""
+        w = self.window
+        return min(seq_len, w) if w else seq_len
 
     # ------------------------------------------------------------------
     # Init
@@ -236,13 +268,27 @@ class LM:
             return y.reshape(shp), aux
         return mlp_apply(blk["mlp"], h, cfg.act), 0.0
 
-    def _attn_layer_full(self, blk: Params, x, positions):
+    def _attn_layer_full(self, blk: Params, x, positions,
+                         cache_len: Optional[int] = None):
+        """Attention + FFN block over the whole sequence.  Returns (x,
+        cache, aux): without ``cache_len`` attention masks with the
+        effective window and the cache is None; with it, ``attn_prefill``
+        fills a cache of ``cache_len`` slots (masks with
+        ``cfg.sliding_window``, as the reference's prefill does)."""
         cfg = self.cfg
         h = rms_norm(blk["ln1"], x, cfg.norm_eps)
-        x = x + A.attn_full(blk["attn"], h, cfg, positions)
+        if cache_len is None:
+            y = A.attn_full(blk["attn"], h, cfg, positions,
+                            window_override=self.window)
+            cache = None
+        else:
+            y, cache = A.attn_prefill(blk["attn"], h, cfg, positions,
+                                      cache_len,
+                                      cache_dtype=self.compute_dtype)
+        x = x + y
         h = rms_norm(blk["ln2"], x, cfg.norm_eps)
         y, aux = self.ffn(blk, h)
-        return x + y, aux
+        return x + y, cache, aux
 
     def wkv_layer_full(self, blk: Params, x, state, lengths=None):
         """RWKV6 block over a (right-padded) sequence: time-mix, then
@@ -296,61 +342,106 @@ class LM:
         return x + y, new
 
     # ------------------------------------------------------------------
-    # Full-sequence pass
+    # Full-sequence pass (train / prefill)
     # ------------------------------------------------------------------
-    def _run_full(self, p: Params, x, positions):
-        """Every layer group over the whole sequence, from zero state.
-        Returns (x, total MoE aux)."""
+    def _run_full(self, p: Params, x, positions, *,
+                  cache_len: Optional[int] = None, init_states=None,
+                  remat: bool = False):
+        """Every layer group over the whole sequence.  Returns (x,
+        per-group caches, total MoE aux).
+
+        With ``cache_len`` (prefill) each group's cache is stacked over
+        its layers as in the reference: attention ``{"k","v","pos"}``
+        of ``attn_cache_len(cache_len)`` slots, rwkv ``{"S","x_prev"}``,
+        mamba ``{"h","conv"}``, hybrid ``{"mamba", "attn"}``; without
+        it the caches are None.  ``init_states`` (per group, stacked)
+        replaces the zero recurrent states.  ``remat`` recomputes each
+        layer (each hybrid super-block) in the backward pass instead of
+        saving its activations, where autograd records."""
         cfg = self.cfg
         B = x.shape[0]
+        keep = cache_len is not None
+        attn_clen = self.attn_cache_len(cache_len) if keep else None
+        ckpt = _checkpointed if remat and torch.is_grad_enabled() \
+            else _called
+        caches = []
         aux_total = 0.0
+
+        def state(gstate, l, init):
+            return init() if gstate is None else layer_slice(gstate, l)
+
+        def rwkv_init():
+            return R.init_rwkv_state(cfg, B, device=x.device)
+
+        def mamba_init():
+            return M.init_mamba_state(cfg, B, device=x.device)
+
         for gi, (kind, count) in enumerate(self.plan):
             gp = p["groups"][gi]
-            for l in range(count):
-                blk = layer_slice(gp, l)
-                if kind == "attn":
-                    x, aux = self._attn_layer_full(blk, x, positions)
-                    aux_total = aux_total + aux
-                elif kind == "wkv":
-                    x, _ = self.wkv_layer_full(
-                        blk, x, R.init_rwkv_state(cfg, B, device=x.device))
-                elif kind == "mamba":
-                    x, _ = self.mamba_layer_full(
-                        blk, x, M.init_mamba_state(cfg, B, device=x.device))
-                elif kind == "hybrid_super":
-                    for j in range(cfg.attn_every):
-                        x, _ = self.mamba_layer_full(
+            gstate = None if init_states is None else init_states[gi]
+            if kind == "attn":
+                def body(carry, l):
+                    x, aux = carry
+                    x, cache, a = ckpt(self._attn_layer_full,
+                                       layer_slice(gp, l), x, positions,
+                                       attn_clen)
+                    return (x, aux + a), cache
+
+                (x, aux_total), cache = _scan(body, (x, aux_total), count,
+                                              keep)
+                caches.append(cache)
+            elif kind in ("wkv", "mamba"):
+                layer, init = (self.wkv_layer_full, rwkv_init) \
+                    if kind == "wkv" else (self.mamba_layer_full, mamba_init)
+
+                def body(x, l):
+                    return ckpt(layer, layer_slice(gp, l), x,
+                                state(gstate, l, init))
+
+                x, new_states = _scan(body, x, count, keep)
+                caches.append(new_states)
+            elif kind == "hybrid_super":
+                k_inner = cfg.attn_every
+                shared = p["shared_attn"]
+                mstates = None if gstate is None else gstate["mamba"]
+
+                def super_block(blk, x, mstate):
+                    def inner(x, j):
+                        return self.mamba_layer_full(
                             layer_slice(blk, j), x,
-                            M.init_mamba_state(cfg, B, device=x.device))
-                    x, _ = self._attn_layer_full(p["shared_attn"], x,
-                                                 positions)
-                else:
-                    raise ValueError(kind)
-        return x, aux_total
+                            state(mstate, j, mamba_init))
+
+                    x, m_new = _scan(inner, x, k_inner, keep)
+                    x, cache, _ = self._attn_layer_full(shared, x, positions,
+                                                        attn_clen)
+                    return x, {"mamba": m_new, "attn": cache}
+
+                def body(x, l):
+                    return ckpt(super_block, layer_slice(gp, l), x,
+                                None if mstates is None
+                                else layer_slice(mstates, l))
+
+                x, new = _scan(body, x, count, keep)
+                caches.append(new)
+            else:
+                raise ValueError(kind)
+        return x, (caches if keep else None), aux_total
 
     # ------------------------------------------------------------------
-    # Public
+    # Public: train forward / loss
     # ------------------------------------------------------------------
     def forward(self, p: Params, batch: Dict[str, Any]):
         """Full-sequence logits (B,S,V) and the MoE aux loss (0 for
         the other families)."""
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x, aux = self._run_full(p, x, positions)
+        x, _, aux = self._run_full(p, x, positions, remat=self.remat)
         return self.logits(p, x), aux
 
     def loss(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Next-token CE over ``batch["labels"]`` (masked by
-        ``loss_mask``).  Dense, VLM and encoder plans; the MoE, SSM and
-        hybrid plans (with the MoE load-balance term) are the next
-        slice, the families' training."""
-        if self.cfg.arch_type not in ("dense", "vlm", "encoder"):
-            raise NotImplementedError(
-                f"{self.cfg.name} ({self.cfg.arch_type}): LM.loss of the "
-                f"MoE, SSM and hybrid families (with the MoE aux term, "
-                f"dispatch and combine as autograd Functions) is the next "
-                f"slice of the port, the families' training slice "
-                f"(ROADMAP queue 1 item 3)")
+        ``loss_mask``) plus ``load_balance_coef`` x the MoE aux loss
+        summed over layers."""
         logits, aux = self.forward(p, batch)
         labels = batch["labels"]
         # align: logits for positions covering the label span (suffix)
@@ -364,7 +455,7 @@ class LM:
         """Final-layer hidden states (B, S, d) — embedder API."""
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x, _ = self._run_full(p, x, positions)
+        x, _, _ = self._run_full(p, x, positions)
         return rms_norm(p["ln_f"], x, self.cfg.norm_eps)
 
     def reward(self, p: Params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -373,12 +464,161 @@ class LM:
             raise ValueError("reward needs a model built with_value_head")
         p = self.cast_params(p)
         x, positions = self.embed_inputs(p, batch)
-        x, _ = self._run_full(p, x, positions)
+        x, _, _ = self._run_full(p, x, positions)
         x = rms_norm(p["ln_f"], x, self.cfg.norm_eps)
         v = matmul(x, p["value_head"].to(x.dtype))[..., 0]
         return torch.sigmoid(v.float())
 
+    # ------------------------------------------------------------------
+    # Public: contiguous cache — prefill, init_cache, decode_step
+    # ------------------------------------------------------------------
+    def prefill(self, p: Params, batch: Dict[str, Any], cache_len: int):
+        """Returns (last-token logits (B,V), cache).  ``batch`` as for
+        ``forward`` (multimodal ``embeds`` and (3,B,S) positions too);
+        the cache's ``next_pos`` is one past the last position (stream
+        0 for M-RoPE)."""
+        p = self.cast_params(p)
+        x, positions = self.embed_inputs(p, batch)
+        x, caches, _ = self._run_full(p, x, positions, cache_len=cache_len)
+        pos2d = positions if positions.dim() == 2 else positions[0]
+        cache = {"groups": caches, "next_pos": pos2d[:, -1] + 1}
+        return self.logits(p, x[:, -1]), cache
 
-def build_model(cfg, *, with_value_head: bool = False,
-                device: Optional[object] = None) -> LM:
-    return LM(cfg, with_value_head=with_value_head, device=device)
+    def init_cache(self, batch: int, cache_len: int, device=None):
+        """Empty cache for ``batch`` sequences of up to ``cache_len``
+        tokens (attention groups hold ``attn_cache_len(cache_len)``
+        slots, int8 with ``quant_kv``), on ``device`` (default the
+        model's; ``"meta"`` allocates nothing)."""
+        cfg = self.cfg
+        dev = self.device if device is None else device
+        clen = self.attn_cache_len(cache_len)
+
+        def kv():
+            return A.init_kv_cache(cfg, batch, clen, self.compute_dtype,
+                                   quant=self.quant_kv, device=dev)
+
+        def rwkv():
+            return R.init_rwkv_state(cfg, batch, device=dev)
+
+        def mamba():
+            return M.init_mamba_state(cfg, batch, device=dev)
+
+        caches = []
+        for kind, count in self.plan:
+            if kind == "attn":
+                caches.append(_stack_init(kv, count))
+            elif kind == "wkv":
+                caches.append(_stack_init(rwkv, count))
+            elif kind == "mamba":
+                caches.append(_stack_init(mamba, count))
+            elif kind == "hybrid_super":
+                caches.append({
+                    "mamba": _stack_init(
+                        lambda: _stack_init(mamba, cfg.attn_every), count),
+                    "attn": _stack_init(kv, count)})
+            else:
+                raise ValueError(kind)
+        return {"groups": caches,
+                "next_pos": torch.zeros((batch,), dtype=torch.int32,
+                                        device=dev)}
+
+    def decode_step(self, p: Params, tokens, cache, write_pos=None):
+        """One-token decode.  tokens (B,1) -> (logits (B,V), new cache);
+        the token goes to ``write_pos`` (default ``cache["next_pos"]``).
+        The cache given is not modified."""
+        cfg = self.cfg
+        p = self.cast_params(p)
+        if write_pos is None:
+            write_pos = cache["next_pos"]
+        x = p["embed"].to(self.compute_dtype)[tokens]    # (B,1,d)
+        new_caches = []
+        for gi, (kind, count) in enumerate(self.plan):
+            gp = p["groups"][gi]
+            gc = cache["groups"][gi]
+            if kind == "attn":
+                def body(x, l):
+                    return self._attn_layer_decode(
+                        layer_slice(gp, l), x, layer_slice(gc, l),
+                        write_pos)
+            elif kind in ("wkv", "mamba"):
+                layer = self.wkv_layer_decode if kind == "wkv" \
+                    else self.mamba_layer_decode
+
+                def body(x, l):
+                    return layer(layer_slice(gp, l), x, layer_slice(gc, l))
+            elif kind == "hybrid_super":
+                def body(x, l):
+                    blk, mstate = layer_slice(gp, l), \
+                        layer_slice(gc["mamba"], l)
+                    x, m_new = _scan(
+                        lambda x, j: self.mamba_layer_decode(
+                            layer_slice(blk, j), x, layer_slice(mstate, j)),
+                        x, cfg.attn_every, True)
+                    x, a_new = self._attn_layer_decode(
+                        p["shared_attn"], x, layer_slice(gc["attn"], l),
+                        write_pos)
+                    return x, {"mamba": m_new, "attn": a_new}
+            else:
+                raise ValueError(kind)
+            x, c_new = _scan(body, x, count, True)
+            new_caches.append(c_new)
+        logits = self.logits(p, x[:, 0])
+        return logits, {"groups": new_caches, "next_pos": write_pos + 1}
+
+    def _attn_layer_decode(self, blk: Params, x, c, write_pos):
+        """Attention + FFN block, one token against its cache."""
+        cfg = self.cfg
+        h = rms_norm(blk["ln1"], x, cfg.norm_eps)
+        y, c_new = self._attn_decode(blk["attn"], h, c, write_pos)
+        x = x + y
+        h = rms_norm(blk["ln2"], x, cfg.norm_eps)
+        y, _ = self.ffn(blk, h)
+        return x + y, c_new
+
+    def _attn_decode(self, ap, h, c, write_pos):
+        """Decode attention honouring the effective window."""
+        cfg = self.cfg
+        if self.window and not cfg.sliding_window:
+            # long-mode override: pretend cfg has the window for masking
+            cfg = dataclasses.replace(cfg, sliding_window=self.window)
+        return A.attn_decode(ap, h, cfg, c, write_pos)
+
+
+def _called(fn, *args):
+    return fn(*args)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (the reference's ``jax.checkpoint``; no dropout, so the recompute is
+    the same computation)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _put(dst, src, i: int) -> None:
+    """Write tree ``src`` into slot ``i`` of the stacked tree ``dst``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], i)
+    else:
+        dst[i] = src
+
+
+def _scan(body: Callable, carry, n: int, keep: bool):
+    """``lax.scan`` over layers 0..n-1: ``body(carry, l) -> (carry, y)``.
+    With ``keep`` the ys are stacked on a new leading axis, each written
+    into the stack as its layer gives it (the peak is the stack plus one
+    layer's y, not two copies); else they are dropped (None)."""
+    out = None
+    for l in range(n):
+        carry, y = body(carry, l)
+        if keep:
+            if out is None:
+                out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
+                               y)
+            _put(out, y, l)
+    return carry, out
+
+
+def build_model(cfg, **kw) -> LM:
+    return LM(cfg, **kw)

@@ -11,9 +11,12 @@ expert counts' cumsum, and slot (e, c) of a fixed (E, C, d) buffer
 gathers the c-th replica routed to expert e; replicas past the capacity
 C are dropped.  Expert compute is one batched matmul over the expert
 axis; the combine gathers each replica's output back from its slot.
-Both directions are gathers, as in the reference.  The reference
+Both directions are gathers, as in the reference, and so are their
+gradients: ``_Dispatch`` and ``_Combine`` are autograd Functions whose
+backwards gather through the inverse mapping (the reference's
+``custom_vjp`` pair), where autograd would scatter-add.  The reference
 computes all of this in plain jnp (no Pallas kernel), and so does the
-port, in plain PyTorch; these are forward functions (serving).
+port, in plain PyTorch.
 
 ``moe_apply_dense`` is the naive loop-over-experts oracle used by tests.
 Expert parallelism over a mesh is not ported: ``moe_apply_auto`` is
@@ -81,7 +84,9 @@ def route(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k(probs, m.top_k)                   # (S, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance loss: E * sum_e f_e * P_e
+    # Switch-style load-balance loss: E * sum_e f_e * P_e; its gradient
+    # flows through P only (f counts integer routes, as the reference's
+    # one-hot of the indices)
     S = x.shape[0]
     f = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float() \
         / (S * m.top_k)                                  # fraction routed
@@ -122,26 +127,64 @@ def _expert_ffn(p, xe, act: str):
     return torch.bmm(h, _w(p["w_down"], xe.dtype))
 
 
-def moe_apply(p, x, cfg, *, capacity: int = 0):
-    """MoE FFN with sort dispatch.  x: (S, d) flattened tokens.  Returns
-    (y (S,d), aux_loss).
+# ---------------------------------------------------------------------------
+# Gather-only dispatch/combine with gather-only backwards.
+#
+# Routing is a permutation with drops: each token replica fills at most
+# one (expert, slot) and each slot is filled by at most one replica, so
+# the transpose of either gather is itself a gather through the inverse
+# mapping.  Replica r = token * k + j (token-major), so a token's k
+# replicas are contiguous.
+# ---------------------------------------------------------------------------
 
-    capacity: per-expert capacity; 0 derives it from ``capacity_factor``
-    (ceil(cf * replicas / E), padded to a multiple of 8).  One dispatch
-    group (the reference's grouping follows data shards, and the port
-    has no mesh).
-    """
-    m = cfg.moe
-    S, d = x.shape
-    E, k = m.n_experts, m.top_k
-    dev = x.device
-    gates, idx, aux = route(p["router"], x, cfg)
+class _Dispatch(torch.autograd.Function):
+    """x (S, d) -> xe_flat (E*C, d): slot i holds token ``src_token[i]``
+    where ``slot_valid[i]``, else zeros.  Backward: replica r reads the
+    gradient at its slot ``slot[r]`` where ``keep[r]``, and each token
+    sums its k replicas."""
+
+    @staticmethod
+    def forward(ctx, x, src_token, slot_valid, slot, keep, k: int):
+        ctx.save_for_backward(slot, keep)
+        ctx.k = k
+        return torch.where(slot_valid[:, None], x[src_token], 0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_xe):
+        slot, keep = ctx.saved_tensors
+        d_rep = torch.where(keep[:, None], d_xe[slot], 0)   # (Lg, d)
+        d_x = d_rep.reshape(-1, ctx.k, d_rep.shape[-1]).sum(dim=1)
+        return d_x, None, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """ye_flat (E*C, d) -> ys (Lg, d) in replica order: replica r reads
+    slot ``slot[r]`` where ``keep[r]``, else zeros.  Backward: slot i
+    reads the gradient of the replica it holds, ``src_replica[i]``,
+    where ``slot_valid[i]``."""
+
+    @staticmethod
+    def forward(ctx, ye_flat, slot, keep, src_replica, slot_valid):
+        ctx.save_for_backward(src_replica, slot_valid)
+        return torch.where(keep[:, None], ye_flat[slot], 0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_ys):
+        src_replica, slot_valid = ctx.saved_tensors
+        d_ye = torch.where(slot_valid[:, None], d_ys[src_replica], 0)
+        return d_ye, None, None, None, None
+
+
+def dispatch_plan(idx: torch.Tensor, E: int, C: int):
+    """The routing maps of ``_Dispatch`` / ``_Combine`` for top-k expert
+    indices ``idx`` (S, k) over ``E`` experts of capacity ``C``:
+    (src_token, slot_valid) per slot (E*C,), (slot, keep) per replica
+    (S*k,), and src_replica per slot."""
+    S, k = idx.shape
     Lg = S * k                                           # replicas
-    if capacity <= 0:
-        cap = int(m.capacity_factor * Lg / E) + 1
-        capacity = -(-cap // 8) * 8
-    C = capacity
-
+    dev = idx.device
     eid = idx.reshape(Lg)                                # token-major
     order = torch.sort(eid, stable=True).indices         # (Lg,)
     rank = torch.empty_like(order)                       # inverse perm
@@ -149,7 +192,7 @@ def moe_apply(p, x, cfg, *, capacity: int = 0):
     counts = torch.bincount(eid, minlength=E)            # (E,)
     starts = torch.cumsum(counts, 0) - counts            # (E,)
 
-    # forward: slot (e, c) pulls the c-th replica routed to expert e
+    # slot (e, c) pulls the c-th replica routed to expert e
     slot_ar = torch.arange(E * C, device=dev)
     e_of_slot = slot_ar // C
     c_of_slot = slot_ar % C
@@ -162,10 +205,34 @@ def moe_apply(p, x, cfg, *, capacity: int = 0):
     pos = rank - starts[eid]                             # (Lg,)
     keep = pos < C
     slot = torch.clamp(eid * C + pos, 0, E * C - 1)
+    return src_token, slot_valid, slot, keep, src_replica
 
-    xe = torch.where(slot_valid[:, None], x[src_token], 0)
+
+def moe_apply(p, x, cfg, *, capacity: int = 0):
+    """MoE FFN with sort dispatch.  x: (S, d) flattened tokens.  Returns
+    (y (S,d), aux_loss).
+
+    capacity: per-expert capacity; 0 derives it from ``capacity_factor``
+    (ceil(cf * replicas / E), padded to a multiple of 8).  One dispatch
+    group (the reference's grouping follows data shards, and the port
+    has no mesh).
+    """
+    m = cfg.moe
+    S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    gates, idx, aux = route(p["router"], x, cfg)
+    Lg = S * k                                           # replicas
+    if capacity <= 0:
+        cap = int(m.capacity_factor * Lg / E) + 1
+        capacity = -(-cap // 8) * 8
+    C = capacity
+
+    src_token, slot_valid, slot, keep, src_replica = dispatch_plan(
+        idx, E, C)
+    xe = _Dispatch.apply(x, src_token, slot_valid, slot, keep, k)
     ye = _expert_ffn(p, xe.reshape(E, C, d), cfg.act)    # (E, C, d)
-    ys = torch.where(keep[:, None], ye.reshape(E * C, d)[slot], 0)
+    ys = _Combine.apply(ye.reshape(E * C, d), slot, keep, src_replica,
+                        slot_valid)                      # (Lg, d)
     y = (ys.reshape(S, k, d) * gates[..., None].to(ye.dtype)).sum(dim=1)
 
     if "shared" in p:

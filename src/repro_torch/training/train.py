@@ -1,9 +1,10 @@
 """Single-device training loops for the LM and the PRM (port of
 ``repro.training.train``).
 
-Gradients come from autograd through the model's plain full-sequence
-pass (``models/attention.py:attn_full``): the reference trains through
-plain jnp attention too, so no kernel lies on this path.  Batches are
+Every family trains: gradients come from autograd through the model's
+plain full-sequence pass (``models/attention.py:attn_full``, the SSD and
+WKV chunk scans, the MoE's gather-only dispatch and combine): the
+reference trains through plain jnp too, so no kernel lies on this path.  Batches are
 drawn exactly as the reference draws them (``np.random.default_rng(0)``,
 one ``make_batch(rng)`` per step), so both packages see the same data.
 """

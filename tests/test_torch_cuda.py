@@ -6,8 +6,10 @@ on machines that have only the port's dependencies:
 
 Each CUDA kernel against its plain version on the card (tolerances of
 the reference's kernel tests), its launch counter, the sampler's known
-answers on the card, and a tiny engine on the card against the same
-engine on the CPU (plain path).
+answers on the card, a tiny engine on the card against the same
+engine on the CPU (plain path), and the plain-PyTorch paths of the
+families' training (MoE dispatch and combine, forward and backward) and
+of the contiguous cache, the card against the CPU.
 """
 import dataclasses
 
@@ -689,3 +691,55 @@ def test_vlm_engine_on_card_matches_cpu(cuda, mode):
     torch.testing.assert_close(outs[1][2], outs[0][2], rtol=1e-4, atol=1e-4)
     kernel = ops.PAGED if mode == "paged" else ops.TREE
     assert kernel.launches > 0 and ops.FLASH.launches > 0
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_and_combine_on_card_match_cpu(cuda):
+    """One MoE block of tiny deepseek-moe (shared experts, capacity 8 so
+    replicas drop): output, aux, and the grads of sum(y^2) + aux to x
+    and every weight, the card against the CPU."""
+    from repro_torch.models import moe as MOE
+    cfg = tiny_variant(get_config("deepseek-moe-16b"))
+    blk = MOE.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.as_tensor(RNG.normal(size=(64, cfg.d_model)),
+                        dtype=torch.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev).requires_grad_(True), blk)
+        xx = x.to(dev).requires_grad_(True)
+        y, aux = MOE.moe_apply(p, xx, cfg, capacity=8)
+        ((y ** 2).sum() + aux).backward()
+        out.append([y, aux, xx.grad] + [a.grad for a in tree_leaves(p)])
+    for a, b in zip(*out):
+        scale = float(b.detach().abs().max())
+        torch.testing.assert_close(a.detach().cpu(), b.detach(),
+                                   rtol=1e-4, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x7b",
+                                  "zamba2-7b", "rwkv6-7b"])
+def test_contiguous_decode_on_card_matches_cpu(cuda, arch):
+    """``prefill`` then 3 ``decode_step``s on the contiguous cache (the
+    mixtral ring, zamba2's hybrid groups, rwkv6 states): logits and every
+    cache leaf, the card against the CPU."""
+    cfg = tiny_variant(get_config(arch))
+    cpu = torch.device("cpu")
+    m_cpu, m_dev = build_model(cfg, device=cpu), build_model(cfg,
+                                                              device=cuda)
+    params = m_cpu.init(torch.Generator().manual_seed(1))
+    p_dev = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab_size, (2, 99)))
+    with torch.no_grad():
+        lg_c, c_c = m_cpu.prefill(params, {"tokens": toks[:, :96]}, 99)
+        lg_d, c_d = m_dev.prefill(p_dev, {"tokens": toks[:, :96].to(cuda)},
+                                  99)
+        torch.testing.assert_close(lg_d.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+        for t in range(96, 99):
+            lg_c, c_c = m_cpu.decode_step(params, toks[:, t:t + 1], c_c)
+            lg_d, c_d = m_dev.decode_step(p_dev, toks[:, t:t + 1].to(cuda),
+                                          c_d)
+            torch.testing.assert_close(lg_d.cpu(), lg_c, rtol=1e-4,
+                                       atol=1e-4)
+    for a, b in zip(tree_leaves(c_d), tree_leaves(c_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
