@@ -47,6 +47,17 @@ exits non-zero):
   6. profile — ``torch.profiler`` over 8 tree-mode decode steps of the
                same sweep (32 rows): device busy share and the kernels
                that take the step's device time;
+  6a. mesh   — the main sweep again on engines placed on a 1-device
+               ``DeviceMesh`` (a world-size-1 NCCL group, pool pages on
+               ``model``): trees equal to the main phase's in both modes,
+               every kernel launched, the shard fallbacks, the kernel
+               seam refusing a 2-device mesh, then ``launch.serve --mesh
+               1`` to its end;
+  6b. dense_prefill — ``EngineConfig(prefill="dense")`` (the reference's
+               oracle) against the flash kernel: the four prompts'
+               prefill logits within 2e-5, both prefill ms, and the main
+               sweep with the dense prefill giving the main phase's
+               trees in both modes;
   7. streamed — one 2048-token prompt prefilled one-shot (flash kernel)
                and in 512-token streamed segments: K/V gap per layer
                (within 1e-3), last-token logit gap, equal 8-token greedy
@@ -143,6 +154,22 @@ exits non-zero):
                tokens), then zamba2-7b whole in long mode, one long_500k
                decode step against a 4096-slot ring filled to 524287
                tokens: ms and peak memory of each; no kernel runs;
+ 17a. expert_parallel — (after hubert) deepseek-moe-16b at full width,
+               4 of 28 layers, dropless, its MoE expert-parallel on a
+               (1,1) mesh of the NCCL group: one layer against
+               ``moe_apply`` (2e-4), then greedy sweeps in paged and
+               tree mode with expert parallelism off and on, equal
+               trees, every kernel launched, the all_to_all calls
+               counted;
+ 20a. dryrun — ``python -m repro_torch.launch.dryrun`` (one process per
+               combo, started before train_families at the lowest CPU
+               priority with no GPU visible, collected after steps):
+               llama3.2-1b on the four shapes on the (16,16) and
+               (2,16,16) fake meshes (long_500k the policy's skip) and
+               deepseek-moe-16b's train_4k on the expert-parallel path;
+               every record ``ok`` or that skip, per-device peak GB and
+               the roofline terms, then ``analysis.report``'s tables; no
+               kernel runs and the card's memory does not move;
  21. replay  — each kernel against its plain version on the largest
                inputs the main path gave it, timed (CUDA events, L2
                flushed between launches; ``ms`` with the host's enqueue
@@ -160,10 +187,11 @@ ran against its plain version; every flash call on a float32 bucket of
 to the same function in float64 (``ORACLE_RATIO``).  Then the kernels
 line ``{"kernels": [...]}`` (``launches``: the sum over the paths
 driven with the counts zeroed just before each — the main sweep in both
-modes, streamed, swap, both serving runs, the replica runs, train,
+modes, the mesh sweeps and mesh serve, the flash and dense prefills and
+the dense sweeps, streamed, swap, both serving runs, the replica runs, train,
 example, serve, each family's sweeps and swap round, the VLM's sweeps,
-its forward and hubert's, the families' training, the contiguous cache
-and the steps —
+its forward and hubert's, the expert-parallel sweeps, the families'
+training, the contiguous cache, the steps and the dry run —
 ``launches_by_path`` each path's) and, last, the device line.  After
 each phase a ``seconds`` line gives its wall time.
 Imports nothing of JAX and nothing of the JAX package.
@@ -843,6 +871,12 @@ def run_mode(torch, np, mode, models, prompts, recorder=None,
         "nodes": [len(r.tree.nodes) for r in results],
         **(info_over or {}),
     }
+    if getattr(engine, "mesh", None) is not None:
+        info.update(mesh=dict(zip(engine.mesh.mesh_dim_names,
+                                  engine.mesh.shape)),
+                    pool_placements=[str(p) for p in engine.pool_placements],
+                    shard_fallbacks=[dataclasses.asdict(f)
+                                     for f in engine.shard_fallbacks])
     if engine.state is not None:
         st = engine.state
         info.update(state_pages=st.n_pages, state_page_mib=st.page_bytes
@@ -1238,7 +1272,8 @@ def phase_main(torch, np, timer):
     launches = {n: l_p[n] + l_t[n] for n in l_p}
     phase_sampling(torch, np, models, prompts, timer)
     phase_profile(torch, models, prompts)
-    return recorder, {"main": launches}, models, prompts
+    return recorder, {"main": launches}, models, prompts, \
+        {"paged": res_p, "tree": res_t}
 
 
 # ---------------------------------------------------------------------------
@@ -3092,6 +3127,345 @@ def phase_steps(torch, np, smi, dev="cuda", shrink=None, shapes=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 9: meshes, the dense-prefill oracle, expert parallelism, the dry
+# run
+# ---------------------------------------------------------------------------
+
+# flash prefill against the dense oracle at llama3.2-1b width: the four
+# 128-256-token prompts' last-token logits (float32 over 16 layers)
+TOL_DENSE_LOGITS = 2e-5
+# expert-parallel MoE against moe_apply (tests/test_mixers.py's 2e-4)
+TOL_EP = 2e-4
+EP_TOKENS = 256
+# deepseek-moe-16b's capacity factor on the expert-parallel path: 8x an
+# expert's mean load, which drops nothing at these routes (the layer
+# check counts the drops).  The dropless factor, its expert count (as
+# the contiguous phase gives mixtral), is 64 here: every expert's buffer
+# as long as all the replicas, 16 GB for a PRM bucket
+EP_CAPACITY_FACTOR = 8.0
+# the dry run's combos: llama3.2-1b on every shape and both meshes (its
+# long_500k is the policy's skip), deepseek-moe-16b's train step on the
+# expert-parallel path
+DRYRUN_COMBOS = tuple(
+    ("llama3.2-1b", shape, mp, False)
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    for mp in (False, True)) + (("deepseek-moe-16b", "train_4k", False,
+                                 True),)
+DRYRUN_POLICY_SKIPS = {("llama3.2-1b", "long_500k")}
+DRYRUN_TIMEOUT = 900
+
+
+class TwoDeviceMesh:
+    """What ``check_mesh_compat`` reads of a 2-device mesh."""
+
+    def size(self, dim=None):
+        return 2
+
+
+def phase_mesh(torch, np, models, prompts, main_res, smi, dev="cuda"):
+    """The main path's greedy ETS sweep on engines placed on a 1-device
+    mesh (a world-size-1 NCCL group): the trees must equal the main
+    phase's in both modes and every kernel launch; the kernel seam must
+    refuse a 2-device mesh; ``launch.serve --mesh 1`` runs to its end.
+    Returns launches per path."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import check_mesh_compat
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device=dev)
+    recorder = Recorder(ops)
+    launches = {k.name: 0 for k in ops.KERNELS}
+    row = {"phase": "mesh_summary", "nvidia_smi": smi,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": torch.distributed.get_backend()}
+    for mode in ("paged", "tree"):
+        res, _, l_m, info = run_mode(
+            torch, np, mode, models, prompts, recorder, phase="mesh",
+            ecfg_over=dict(mesh=mesh), info_over={"nvidia_smi": smi},
+            dev=dev)
+        same, worst = same_trees(main_res[mode], res)
+        row[mode] = {"same_tree_as_main": same, "max_reward_rel_gap": worst,
+                     "shard_fallbacks": info["shard_fallbacks"]}
+        if not same or worst > TOL_FAMILY_REWARD:
+            emit(row)
+            fail(f"mesh {mode}: the trees differ from the main phase's "
+                 f"({same}, reward gap {worst})")
+        want = "paged_attention" if mode == "paged" else "tree_attention"
+        if not (l_m[want] and l_m["flash_prefill"]):
+            fail(f"mesh {mode}: a kernel of the path did not launch: {l_m}")
+        for k, v in l_m.items():
+            launches[k] += v
+    try:
+        check_mesh_compat(TwoDeviceMesh(), use_kernel=True)
+    except ValueError as e:
+        row["two_device_mesh_refused"] = str(e)
+    else:
+        fail("check_mesh_compat let a 2-device mesh through to the kernels")
+    row["launches"] = launches
+    emit(row)
+    check_recorded(recorder, "mesh")
+    serve = phase_serve(torch, smi, dev, argv=["--mesh", "1"],
+                        path="mesh:serve")
+    return {"mesh": launches, "mesh:serve": serve}
+
+
+def phase_dense_prefill(torch, np, models, prompts, main_res, smi,
+                        dev="cuda"):
+    """``EngineConfig(prefill="dense")``, the reference's one-shot oracle,
+    against the flash kernel at llama3.2-1b width: the four prompts'
+    prefill logits within ``TOL_DENSE_LOGITS``, the prefill ms of each
+    (the second of two calls, CUDA events), then the main phase's greedy
+    sweep with the dense prefill, whose trees must equal the main
+    phase's in both modes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, PagedEngine
+    (lm, lp), _, _ = models
+    fresh_peak(torch, dev)
+    ops.reset_launch_counts()
+    logits, ms = {}, {}
+    for prefill in ("flash", "dense"):
+        engine = PagedEngine(lm, lp, EngineConfig(
+            n_pages=1024, page_size=16, max_batch=32, max_seq_len=512,
+            prefill=prefill, trace_logits=True), device=dev)
+        for sid in engine.prefill_many(prompts):      # warm-up
+            engine.free(sid)
+        _, ms[prefill] = event_ms(torch, dev,
+                                  lambda: engine.prefill_many(prompts))
+        logits[prefill] = torch.as_tensor(engine.logits_trace[-1])
+        del engine
+    launches = launch_counts(ops)
+    gap = float((logits["flash"] - logits["dense"]).abs().max())
+    row = {"phase": "dense_prefill", "nvidia_smi": smi,
+           "prompt_tokens": [len(p) for p in prompts],
+           "logits_max_abs_gap": gap, "tol": TOL_DENSE_LOGITS,
+           "logits_max_abs": float(logits["dense"].abs().max()),
+           "flash_prefill_ms": ms["flash"], "dense_prefill_ms": ms["dense"],
+           "dense_over_flash": ms["dense"] / ms["flash"]}
+    if not launches["flash_prefill"]:
+        fail(f"dense_prefill: the flash engine launched no kernel: "
+             f"{launches}")
+    for mode in ("paged", "tree"):
+        res, _, l_m, _ = run_mode(
+            torch, np, mode, models, prompts, phase="dense_prefill",
+            ecfg_over=dict(prefill="dense"), info_over={"nvidia_smi": smi},
+            dev=dev)
+        same, worst = same_trees(main_res[mode], res)
+        row[mode] = {"same_tree_as_main": same, "max_reward_rel_gap": worst,
+                     "launches": l_m}
+        if l_m["flash_prefill"]:
+            fail(f"dense_prefill {mode}: the dense oracle launched the "
+                 f"flash kernel")
+        for k, v in l_m.items():
+            launches[k] += v
+        if not same or worst > TOL_FAMILY_REWARD:
+            emit(row)
+            fail(f"dense_prefill {mode}: the trees differ from the flash "
+                 f"engine's ({same}, reward gap {worst})")
+    row["launches"] = launches
+    emit(row)
+    if gap > TOL_DENSE_LOGITS:
+        fail(f"dense_prefill: logits {gap} apart (tolerance "
+             f"{TOL_DENSE_LOGITS})")
+    return launches
+
+
+def ep_capacity(cfg):
+    """The config at ``EP_CAPACITY_FACTOR``."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CAPACITY_FACTOR))
+
+
+def phase_expert_parallel(torch, np, smi, dev="cuda", shrink=None):
+    """deepseek-moe-16b at full width, 4 of 28 layers, capacity factor
+    ``EP_CAPACITY_FACTOR``, with the expert-parallel MoE on a (1,1) mesh
+    of a world-size-1 NCCL group: one layer's
+    ``moe_apply_expert_parallel`` against ``moe_apply`` on the same
+    tokens (``TOL_EP``; no replica dropped), then the families phase's
+    greedy sweep in paged and tree mode with expert parallelism off and
+    on, whose trees must be equal, every kernel launching; the
+    all_to_all calls counted.  Returns the path's launches (the EP-on sweeps')."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import layer_slice
+    base = fresh_peak(torch, dev)
+    cut = (lambda c: ep_capacity(shrink(c))) if shrink else ep_capacity
+    models = family_models(torch, "deepseek-moe-16b", 4, 2, dev, cut)
+    (lm, lp), _, _ = models
+    cfg = lm.cfg
+    mesh = make_host_mesh(device=dev)
+    gi = next(i for i, g in enumerate(lp["groups"]) if "moe" in g)
+    p = layer_slice(lp["groups"][gi], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((EP_TOKENS, cfg.d_model), generator=gen, device=dev)
+    saved = (MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS)
+    try:
+        with torch.no_grad():
+            y_ref, aux_ref = MOE.moe_apply(p, x, cfg)
+            _, idx, _ = MOE.route(p["router"], x, cfg)
+            C = MOE._capacity(cfg, EP_TOKENS * cfg.moe.top_k, 0)
+            dropped = int((~MOE.dispatch_plan(idx, cfg.moe.n_experts,
+                                              C)[3]).sum())
+            MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS = mesh, ("data",), 1
+            n0 = MOE.N_ALL_TO_ALL
+            y, aux = MOE.moe_apply_expert_parallel(p, x, cfg)
+            layer_a2a = MOE.N_ALL_TO_ALL - n0
+        err = float(((y - y_ref).abs() / (TOL_EP + TOL_EP * y_ref.abs()))
+                    .max())
+        row = {"phase": "expert_parallel", "nvidia_smi": smi,
+               "arch": cfg.name, "n_layers": cfg.n_layers,
+               "capacity_factor": cfg.moe.capacity_factor,
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "layer_tokens": EP_TOKENS, "layer_capacity": C,
+               "layer_dropped_replicas": dropped,
+               "layer_max_abs_err": float((y - y_ref).abs().max()),
+               "layer_err_over_tol": err, "tol": TOL_EP,
+               "aux_gap": float((aux - aux_ref).abs()),
+               "layer_all_to_all": layer_a2a}
+        if err > 1.0 or dropped:
+            emit(row)
+            fail(f"expert_parallel: one layer {row['layer_max_abs_err']} "
+                 f"from moe_apply, {dropped} replicas dropped")
+        rng = np.random.default_rng(0)
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+                   for n in rng.integers(128, 257, 4)]
+        runs, launches = {}, {k.name: 0 for k in ops.KERNELS}
+        for ep in (False, True):
+            MOE.MESH = mesh if ep else None
+            n0 = MOE.N_ALL_TO_ALL
+            for mode in ("paged", "tree"):
+                res, _, l_m, _ = run_mode(
+                    torch, np, mode, models, prompts,
+                    phase="expert_parallel",
+                    ecfg_over=dict(n_state_pages=FAMILY_STATE_PAGES),
+                    bcfg_over=dict(step_token=FAMILY_STEP_TOKEN,
+                                   eos_token=FAMILY_EOS_TOKEN),
+                    info_over={"nvidia_smi": smi, "expert_parallel": ep},
+                    dev=dev)
+                runs[ep, mode] = res
+                if ep:
+                    for k, v in l_m.items():
+                        launches[k] += v
+            row["sweep_all_to_all" if ep else "sweep_all_to_all_off"] = \
+                MOE.N_ALL_TO_ALL - n0
+    finally:
+        MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS = saved
+    for mode in ("paged", "tree"):
+        same, worst = same_trees(runs[False, mode], runs[True, mode])
+        row[mode] = {"same_tree_as_ep_off": same,
+                     "max_reward_rel_gap": worst}
+        if not same or worst > TOL_FAMILY_REWARD:
+            emit(row)
+            fail(f"expert_parallel {mode}: the trees differ from the EP-off "
+                 f"sweep's ({same}, reward gap {worst})")
+    row.update(launches=launches,
+               peak_over_phase_base_bytes=peak_bytes(torch, dev) - base)
+    emit(row)
+    if not row["sweep_all_to_all"] or row["sweep_all_to_all_off"]:
+        fail(f"expert_parallel: all_to_all calls {row['sweep_all_to_all']} "
+             f"with EP on, {row['sweep_all_to_all_off']} off")
+    if not all(launches.values()):
+        fail(f"expert_parallel: a kernel of the path did not launch: "
+             f"{launches}")
+    del models, lm, lp, p, x, y, y_ref, runs
+    fresh_peak(torch, dev)
+    return launches
+
+
+def start_dryrun(out_dir, combos=DRYRUN_COMBOS):
+    """One ``python -m repro_torch.launch.dryrun`` process per combo
+    (each owns its fake process group), at the lowest CPU priority and
+    with no GPU visible; returns the processes."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mp, opt in combos:
+        cmd = ["nice", "-n", "19", sys.executable, "-m",
+               "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--out", str(out_dir)] + (["--multi-pod"] if mp else []) \
+            + (["--opt"] if opt else [])
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def phase_dryrun(torch, smi, procs, out_dir, t_started):
+    """Collect the dry-run processes (started earlier, ``start_dryrun``):
+    every record must be ``ok`` or the policy's skip.  Prints one line
+    per record (per-device peak GB, the roofline terms) and the report's
+    tables (``repro_torch.analysis.report``).  No kernel runs and the
+    card's memory does not move."""
+    import os
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated()
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=DRYRUN_TIMEOUT)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    bad = [(pr.returncode, out[-1500:]) for pr, out in zip(procs, outs)
+           if pr.returncode != 0]
+    recs = [json.loads(Path(out_dir, f).read_text())
+            for f in sorted(os.listdir(out_dir)) if f.endswith(".json")]
+    for r in recs:
+        row = {"phase": "dryrun", "nvidia_smi": smi, "arch": r["arch"],
+               "shape": r["shape"], "mesh": r["mesh"], "status": r["status"],
+               "variant": r.get("variant")}
+        if r["status"] == "ok":
+            rf, m = r["roofline"], r["memory"]
+            row.update(chips=rf["chips"],
+                       peak_gb_per_device=m["peak_bytes_est"] / 1e9,
+                       argument_gb=m["argument_bytes"] / 1e9,
+                       compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+                       collective_s=rf["collective_s"],
+                       bottleneck=rf["bottleneck"],
+                       flops_per_device=rf["flops"],
+                       dot_bytes_per_device=rf["bytes_hbm"],
+                       collective_bytes_per_device=rf["bytes_collective"],
+                       useful_flops_ratio=rf["useful_flops_ratio"],
+                       n_collectives=r.get("n_collectives"),
+                       trace_s=r["lower_s"])
+        else:
+            row.update(reason=r.get("reason"), error=r.get("error"),
+                       operator=r.get("operator"))
+        emit(row)
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.report", "--dir",
+         str(out_dir)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC),
+                                           CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    emit({"phase": "dryrun_report", "returncode": report.returncode,
+          "tables": report.stdout})
+    launches = launch_counts(ops)
+    emit({"phase": "dryrun_summary", "records": len(recs),
+          "ok": sum(r["status"] == "ok" for r in recs),
+          "skip": sum(r["status"] == "skip" for r in recs),
+          "wall_s_since_start": time.perf_counter() - t_started,
+          "card_memory_moved_bytes": torch.cuda.memory_allocated() - mem0,
+          "launches": launches})
+    if bad:
+        fail(f"dryrun: {len(bad)} processes failed: {bad[:2]}")
+    if len(recs) != len(DRYRUN_COMBOS) or report.returncode != 0:
+        fail(f"dryrun: {len(recs)} records of {len(DRYRUN_COMBOS)}, "
+             f"report rc {report.returncode}: {report.stderr[-500:]}")
+    for r in recs:
+        skip_ok = r["status"] == "skip" and (r["arch"], r["shape"]) \
+            in DRYRUN_POLICY_SKIPS
+        if r["status"] != "ok" and not skip_ok:
+            fail(f"dryrun: {r['arch']} {r['shape']} {r['mesh']}: "
+                 f"{r['status']} {r.get('error', r.get('reason'))}")
+    if any(launches.values()) or torch.cuda.memory_allocated() != mem0:
+        fail(f"dryrun: the card was used: {launches}")
+    return launches
+
+
 def run_phase(name, fn, *args, **kw):
     """``fn(*args, **kw)``, then one line with its seconds."""
     t0 = time.perf_counter()
@@ -3116,8 +3490,14 @@ def main() -> int:
     run_phase("build", phase_build)
     run_phase("parity", phase_parity, torch, np)
     timer = Timer(torch)
-    recorder, by_path, models, prompts = run_phase("main", phase_main,
-                                                   torch, np, timer)
+    recorder, by_path, models, prompts, main_res = run_phase(
+        "main", phase_main, torch, np, timer)
+    by_path.update(run_phase("mesh", phase_mesh, torch, np, models, prompts,
+                             main_res, smi))
+    by_path["dense_prefill"] = run_phase("dense_prefill", phase_dense_prefill,
+                                         torch, np, models, prompts,
+                                         main_res, smi)
+    del main_res
     rng = np.random.default_rng(1)
     long_prompt = list(map(int, rng.integers(0, 128000, LONG_PROMPT)))
     swap_prompt = list(map(int, rng.integers(0, 128000, 256)))
@@ -3145,12 +3525,22 @@ def main() -> int:
     by_path["vlm:forward"] = run_phase("vlm_frontend", phase_vlm_frontend,
                                        torch, np, smi)
     by_path["hubert"] = run_phase("hubert", phase_hubert, torch, np, smi)
+    by_path["expert_parallel"] = run_phase(
+        "expert_parallel", phase_expert_parallel, torch, np, smi)
+    # the dry run is CPU work on a fake process group: it runs beside the
+    # last, device-bound phases and is collected after them
+    dry_dir = tempfile.TemporaryDirectory()
+    t_dry = time.perf_counter()
+    dry_procs = start_dryrun(dry_dir.name)
     by_path["train_families"] = run_phase("train_families",
                                           phase_train_families, torch, np,
                                           smi)
     by_path["contiguous"] = run_phase("contiguous", phase_contiguous, torch,
                                       np, smi)
     by_path["steps"] = run_phase("steps", phase_steps, torch, np, smi)
+    by_path["dryrun"] = run_phase("dryrun", phase_dryrun, torch, smi,
+                                  dry_procs, dry_dir.name, t_dry)
+    dry_dir.cleanup()
     from repro_torch.kernels import ops
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in ops.KERNELS}
@@ -3159,6 +3549,8 @@ def main() -> int:
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     emit({"phase": "seconds", "of": "smoke",
           "seconds": round(time.perf_counter() - t_start, 3)})
     emit({"kernels": lines})

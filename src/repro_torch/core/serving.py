@@ -40,9 +40,11 @@ is each request's time-to-answer (TTA), not aggregate throughput.
     latency-optimal early exit: a problem halts the moment its first
     trajectory completes, taking that trajectory's answer.
 
-Lock-step mode runs on any search backend.  Refill mode needs the
-backend's row-level interface (``expand_begin`` / ``expand_finish`` /
-``open_stream`` / ``stream_budget``), which ``LMBackend`` provides.
+Everything here is backend-agnostic: the row-level interface
+(``expand_begin`` / ``expand_finish`` / ``open_stream``) is used when
+the backend provides it, and the loop degrades to whole-step
+event-driven scheduling (still per-problem clocks, no barrier) when it
+does not — synthetic test backends exercise the same control flow.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from .controllers import (AdaptiveConfig, SearchConfig, SearchResult,
-                          SweepScheduler, _embed_multi, _score_multi)
+                          SweepScheduler, _embed_multi, _expand_multi,
+                          _score_multi)
 
 __all__ = [
     "Request", "ServingConfig", "SLOTracker", "ServingLoop",
@@ -178,8 +181,8 @@ class ServingConfig:
     ``refill`` selects the scheduling mode: False runs the sweep's
     lock-step barrier (one global step per tick — the baseline the
     benchmarks compare against); True runs event-driven per-problem
-    step clocks with token-level row refill, through the backend's
-    row-level interface.  Costs are in arbitrary virtual-clock
+    step clocks with token-level row refill when the backend exposes
+    the row-level interface.  Costs are in arbitrary virtual-clock
     units; only their ratios matter for the latency comparison.
     """
     refill: bool = True
@@ -188,6 +191,7 @@ class ServingConfig:
     score_cost: float = 1.0         # one PRM call
     embed_cost: float = 0.5         # one embedder call
     prefill_cost: float = 0.5       # one admitted problem's prefill
+    est_step_cost: Optional[float] = None   # override for slack estimate
 
     @classmethod
     def from_stage_costs(cls, costs: Dict[str, Any],
@@ -238,11 +242,6 @@ class ServingLoop(SweepScheduler):
         # registers late arrivals under their GLOBAL index via submit()
         self.requests: Dict[int, Request] = dict(enumerate(reqs))
         self.cfg = cfg if cfg is not None else ServingConfig()
-        if self.cfg.refill and not all(hasattr(backend, m) for m in (
-                "expand_begin", "expand_finish", "open_stream",
-                "stream_budget")):
-            raise NotImplementedError(
-                "refill needs the backend's row-level interface")
         super().__init__(backend, scfg,
                          prompts=[r.prompt for r in reqs],
                          max_live=max_live, adaptive=adaptive)
@@ -259,7 +258,10 @@ class ServingLoop(SweepScheduler):
         self._pending: List[Tuple[float, int, Any]] = sorted(
             (reqs[i].arrival, i, item) for i, item in self._queue)
         self._queue = []
-        # token-level refill state
+        # token-level refill state (row-level backends only)
+        self._rowlevel = all(hasattr(backend, m) for m in (
+            "expand_begin", "expand_finish", "open_stream",
+            "stream_budget"))
         self._stream = None
         self._tickets: Dict[int, Any] = {}        # idx -> ExpandTicket
         self._waiting: Dict[int, Set[int]] = {}   # idx -> undecoded bids
@@ -271,10 +273,13 @@ class ServingLoop(SweepScheduler):
         self._defer_stamps = False
         self._retired_this_tick: List[int] = []
         # slack estimate: expected cost of one remaining search step
-        budget_fn = getattr(backend, "stream_budget", None)
-        toks = int(budget_fn()) if budget_fn is not None else 8
-        self._est_step = (self.cfg.decode_iter_cost * toks
-                          + self.cfg.score_cost + self.cfg.embed_cost)
+        if self.cfg.est_step_cost is not None:
+            self._est_step = float(self.cfg.est_step_cost)
+        else:
+            budget_fn = getattr(backend, "stream_budget", None)
+            toks = int(budget_fn()) if budget_fn is not None else 8
+            self._est_step = (self.cfg.decode_iter_cost * toks
+                              + self.cfg.score_cost + self.cfg.embed_cost)
 
     # -- late registration (replica routing) ---------------------------
     def submit(self, idx: int, req: Request) -> None:
@@ -391,7 +396,7 @@ class ServingLoop(SweepScheduler):
 
     def _tick_event(self) -> bool:
         """Event mode: per-problem step clocks, no cross-problem
-        barrier, token-level refill."""
+        barrier; token-level refill when the backend supports it."""
         self._retired_this_tick = []
         if self._mem:
             self._resume_parked()
@@ -399,7 +404,10 @@ class ServingLoop(SweepScheduler):
         if self._mem:
             self._update_peaks()
             self._handle_pressure()
-        self._pump_stream()
+        if self._rowlevel:
+            self._pump_stream()
+        else:
+            self._step_one_problem()
         return bool(self.live or self.parked or self._queue
                     or self._pending)
 
@@ -500,6 +508,55 @@ class ServingLoop(SweepScheduler):
             self._charge(self.cfg.embed_cost)
             for (_, st, _), embs in zip(embeds, all_embs):
                 st.complete_step(embs)
+
+    # -- event mode: whole-step fallback -------------------------------
+    def _step_one_problem(self) -> None:
+        """Advance the most urgent demand-phase problem one full step
+        (backends without the row-level interface: still per-problem
+        clocks and priorities, just no mid-step refill)."""
+        cands = [i for i in sorted(self.live)
+                 if self.live[i].phase == "demand"]
+        if not cands:
+            return
+        idx = min(cands, key=lambda i: (self._slack(i),
+                                        -self._priority.get(i, 0), i))
+        st = self.live[idx]
+        self._adapt(idx, st)
+        lc = st.demand()
+        if lc is None:
+            self._retire(idx)
+            return
+        kids = _expand_multi(self.backend, [(st.tree, lc)])[0]
+        self._charge(self.cfg.decode_iter_cost *
+                     max((st.tree.node(k).n_tokens for k in kids),
+                         default=1))
+        self._complete_step(idx, kids)
+
+    # -- one problem's post-decode stages ------------------------------
+    def _complete_step(self, idx: int, kids: Sequence[int]) -> None:
+        st = self.live[idx]
+        to_score = st.note_children(kids)
+        if st.finished:
+            self._retire(idx)
+            return
+        scores = _score_multi(self.backend, [(st.tree, to_score)])[0]
+        self._charge(self.cfg.score_cost)
+        if self.controller is not None:
+            self.controller.observe(idx, st, scores)
+        to_embed = st.note_scores(scores)
+        if st.finished:
+            self._retire(idx)
+            return
+        if self.cfg.first_finish and st.completed:
+            st.halt()               # First-Finish: first answer wins
+            self._retire(idx)
+            return
+        if to_embed:
+            embs = _embed_multi(self.backend, [(st.tree, to_embed)])[0]
+            self._charge(self.cfg.embed_cost)
+            st.complete_step(embs)
+        else:
+            st.complete_step(None)
 
     # -- drive ---------------------------------------------------------
     def run(self) -> List[SearchResult]:

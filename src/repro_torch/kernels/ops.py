@@ -56,6 +56,27 @@ class Kernel:
         self.launches += 1
 
 
+def check_mesh_compat(mesh, *, use_kernel: bool) -> None:
+    """Wrapper-seam guard for mesh-aware engines.
+
+    The kernels run per device: called on operands sharded across a
+    >1-device mesh they would compute on a shard as if it were the whole
+    pool.  Engines therefore call this at build time, with
+    ``use_kernel`` true on a CUDA device (where the kernels decide), and
+    a multi-device mesh with kernels is refused up front.
+    """
+    if mesh is None or not use_kernel:
+        return
+    size = mesh.size()
+    if size > 1:
+        raise ValueError(
+            f"use_kernel=True on a {size}-device mesh: the CUDA "
+            f"decode/prefill kernels are per-device and not yet wrapped "
+            f"in local_map (the port's shard_map) — run the plain "
+            f"PyTorch path (use_kernel=False) on multi-device meshes, or "
+            f"a 1-device mesh with kernels")
+
+
 PAGED = Kernel("paged_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/paged_attention.py:116")
 TREE = Kernel("tree_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P],

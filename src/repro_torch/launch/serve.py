@@ -13,16 +13,24 @@ report.
     PYTHONPATH=src python -m repro_torch.launch.serve --trace trace.json \\
         --no-refill
 
-    # one arrival stream over 2 engine replicas (least-loaded routing):
-    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2
+    # one arrival stream over 2 engine replicas, each KV pool placed on
+    # a host mesh with a 1-wide model axis:
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \\
+        --mesh 1
+
+    # the serve step on the production mesh (fake process group):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+        --dry-run [--shape decode_32k] [--multi-pod]
 
 The clock is virtual (stage costs, not wall time), so runs are
 deterministic in ``--seed``.  Training and serving run on the CUDA
 device unless ``--device`` names another.  The replicas share one set
 of model weights; each has its own engine, KV pool, allocator and key
 chains, seeded from the backend seed, so routing never changes an
-answer.  ``--mesh`` and ``--dry-run`` (``ROADMAP.md`` queue 1 item 6)
-are not ported and raise ``NotImplementedError``.
+answer.  ``--mesh MODEL`` places each engine on ``make_host_mesh``
+(a world-size-1 group unless one exists, so MODEL is 1 on one device).
+``--dry-run`` runs ``launch.dryrun.lower_combo`` for ``--arch`` at
+``--shape`` and prints its status and memory.
 """
 from __future__ import annotations
 
@@ -65,7 +73,8 @@ def parse_args(argv=None):
                     help="engine replicas on the device, one arrival "
                          "stream")
     ap.add_argument("--mesh", type=int, default=0, metavar="MODEL",
-                    help="KV pool mesh (not ported; 0 = no mesh)")
+                    help="place each engine's KV pool on a host mesh with "
+                         "this model-axis size (0: no mesh)")
     ap.add_argument("--no-refill", action="store_true",
                     help="lock-step barrier baseline (refill off)")
     ap.add_argument("--first-finish", action="store_true",
@@ -73,6 +82,8 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train-steps", type=int, default=250)
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     return ap.parse_args(argv)
@@ -81,15 +92,13 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Prints the report; returns ``{"loop", "backends", "backend",
     "results", "answers", "report"}`` (``backend`` is the first
-    replica's)."""
+    replica's), or ``{"record"}`` with ``--dry-run``."""
     args = parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the serve step on a production mesh: not "
-            "ported (ROADMAP.md queue 1 item 6, meshes)")
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: meshes are not ported (ROADMAP.md queue 1 item 6)")
+        from .dryrun import lower_combo
+        rec = lower_combo(args.arch, args.shape, multi_pod=args.multi_pod)
+        print(rec.get("status"), rec.get("memory", rec.get("error")))
+        return {"record": rec}
 
     task = ArithmeticTask(n_ops=4, seq_len=64)
     lm_cfg = dataclasses.replace(get_config(args.arch),
@@ -113,9 +122,13 @@ def main(argv=None) -> dict:
     emb = build_model(emb_cfg, device=dev)
     emb_params = init(emb, 2)
 
+    mesh = None
+    if args.mesh:
+        from .mesh import make_host_mesh
+        mesh = make_host_mesh(model=args.mesh, device=dev)
     ecfg = EngineConfig(
         n_pages=2048, page_size=8, max_batch=max(args.width * 2, 32),
-        max_seq_len=200, attention="tree")
+        max_seq_len=200, attention="tree", mesh=mesh)
 
     def make_backend():
         # identically-seeded backends: a request's RNG namespace chain

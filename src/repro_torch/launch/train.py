@@ -8,9 +8,12 @@ names another, and optionally writes a checkpoint:
     PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-lm \\
         --steps 100 --ckpt /tmp/lm.npz
 
-``--dry-run`` (lowering the distributed step on a production mesh) is
-not ported: meshes are the port's final slice (``ROADMAP.md`` queue 1
-item 6).
+``--dry-run`` runs the train step of ``--arch`` at ``train_4k`` on the
+production mesh instead (``launch.dryrun.lower_combo``, equivalent to
+the dry run's train_4k; ``--multi-pod`` for the (2,16,16) mesh):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
+        --dry-run
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ def parse_args(argv=None):
     ap.add_argument("--tiny", action="store_true",
                     help="train the reduced variant of --arch")
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
@@ -56,13 +60,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns ``(model, params, loss history)``."""
+    """Returns ``(model, params, loss history)``, or the dry run's record
+    with ``--dry-run``."""
     args = parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the train step on a production mesh: not "
-            "ported; meshes are the port's final slice (ROADMAP.md queue 1 "
-            "item 6)")
+        from .dryrun import lower_combo
+        rec = lower_combo(args.arch, "train_4k", multi_pod=args.multi_pod)
+        print(rec.get("status"), rec.get("memory", rec.get("error")))
+        return rec
     model, params = model_and_params(args.arch, tiny=args.tiny,
                                      device=args.device)
     task = ArithmeticTask(n_ops=3, seq_len=64)

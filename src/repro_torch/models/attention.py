@@ -24,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from .layers import apply_rope, dense_init, matmul, rms_norm, rope_angles
+from .layers import (_ContiguousGrad, apply_rope, dense_init, matmul,
+                     on_mesh, rms_norm, rope_angles)
 
 NEG_INF = -1e30
 
@@ -77,10 +78,16 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
 BLOCKED_ATTN_THRESHOLD = 2048
 BLOCK_Q = 512
 BLOCK_K = 1024
+# the blocks of the DTensor path (the dry run, which counts operations
+# and never computes): the same FLOPs in 64x fewer block steps than at
+# BLOCK_Q x BLOCK_K, each step's scores (4096 x 4096 per head) held
+SHARDED_BLOCK = 4096
 
 
 def masked_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
     """Plain attention.  q (B,S,H,hd), k/v (B,C,K,hd), mask (B,S,C)."""
+    if hasattr(q, "device_mesh"):
+        return _sharded_masked_attention(q, k, v, mask, scale=scale)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -91,6 +98,62 @@ def masked_attention(q, k, v, mask, *, scale: float) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsc,bckh->bskgh", probs.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
+
+
+def _sharded_masked_attention(q, k, v, mask, *, scale: float):
+    """``masked_attention`` on DTensors (the dry run's decode against a
+    cache whose sequence shards over ``model``, the serve policy):
+    flash-decoding inside ``local_map``.  Each rank scores its batch rows
+    against its slice of the cache, and the softmax max, denominator and
+    weighted values combine over the ``model`` group with all-reduces."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    m_i = names.index("model")
+    split = k.shape[1] % mesh.size(m_i) == 0
+    group = mesh.get_group("model")
+    # rows follow the cache's own batch sharding (re-sharding a cache's
+    # rows over other mesh dims would gather it)
+    if isinstance(k, DTensor):
+        rows = [k.placements[i].is_shard(0) for i in range(len(names))]
+    else:
+        n_dp = 1
+        for i in range(len(names)):
+            n_dp *= mesh.size(i) if i != m_i else 1
+        rows = [q.shape[0] % n_dp == 0] * len(names)
+
+    def plc(seq_dim):
+        return tuple((Shard(seq_dim) if split and seq_dim is not None
+                      else Replicate()) if i == m_i else
+                     (Shard(0) if rows[i] else Replicate())
+                     for i in range(len(names)))
+
+    def local(ql, kl, vl, ml):
+        B, S, H, hd = ql.shape
+        K = kl.shape[2]
+        qg = ql.reshape(B, S, K, H // K, hd)
+        s = torch.einsum("bskgh,bckh->bkgsc", qg, kl).float() * scale
+        s = torch.where(ml[:, None, None], s,
+                        torch.tensor(NEG_INF, device=s.device))
+        m = s.amax(dim=-1)
+        if split:
+            m = all_reduce(m, "max", group)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bkgsc,bckh->bskgh", p.to(vl.dtype), vl).float()
+        if split:
+            l = all_reduce(l, "sum", group)
+            acc = all_reduce(acc, "sum", group)
+        l = l.permute(0, 3, 1, 2)[..., None]                # (B,S,K,G,1)
+        return (acc / l).reshape(B, S, H, hd).to(ql.dtype)
+
+    fn = local_map(local, out_placements=list(plc(None)),
+                   in_placements=(plc(None), plc(1), plc(1), plc(2)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*(on_mesh(t, mesh) for t in (q, k, v, mask)))
 
 
 def blocked_attention(q, k, v, q_pos, kv_pos, *, scale: float, causal: bool,
@@ -144,13 +207,31 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, scale: float, causal: bool,
 # Apply
 # ---------------------------------------------------------------------------
 
+def _split_heads(t, B, S, n_heads, hd):
+    """(B, S, n_heads*hd) -> (B, S, n_heads, hd).  A DTensor whose last
+    dim is sharded over a mesh dim that does not divide the heads (GQA
+    K/V heads fewer than the ``model`` dim) is replicated over that mesh
+    dim first: DTensor cannot split a sharded dim unevenly."""
+    if hasattr(t, "device_mesh"):
+        mesh = t.device_mesh
+        plc = list(t.placements)
+        bad = [i for i, pl in enumerate(plc)
+               if pl.is_shard(t.ndim - 1) and n_heads % mesh.size(i)]
+        if bad:
+            from torch.distributed.tensor import Replicate
+            for i in bad:
+                plc[i] = Replicate()
+            t = t.redistribute(mesh, plc)
+    return t.reshape(B, S, n_heads, hd)
+
+
 def _project_qkv(p, x, cfg, positions):
     """Project + rope.  positions: (B,S), or (3,B,S) for M-RoPE."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = matmul(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = matmul(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _split_heads(matmul(x, p["wq"]), B, S, cfg.n_heads, hd)
+    k = _split_heads(matmul(x, p["wk"]), B, S, cfg.n_kv_heads, hd)
+    v = _split_heads(matmul(x, p["wv"]), B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -164,11 +245,67 @@ def _project_qkv(p, x, cfg, positions):
 def _self_attention(q, k, v, pos2d, cfg, window: int) -> torch.Tensor:
     """q/k/v of one sequence attending to itself: blocked from
     ``BLOCKED_ATTN_THRESHOLD`` tokens on, dense einsum below."""
+    if hasattr(q, "device_mesh"):
+        return _sharded_self_attention(q, k, v, pos2d, cfg, window)
     if q.shape[1] >= BLOCKED_ATTN_THRESHOLD:
         return blocked_attention(q, k, v, pos2d, pos2d, causal=cfg.causal,
                                  window=window, scale=cfg.head_dim ** -0.5)
     mask = make_mask(pos2d, pos2d, causal=cfg.causal, window=window)
     return masked_attention(q, k, v, mask, scale=cfg.head_dim ** -0.5)
+
+
+def _sharded_self_attention(q, k, v, pos2d, cfg, window: int):
+    """``_self_attention`` on DTensors (the dry run): each rank attends
+    its own batch rows and query heads, inside ``local_map`` (the
+    reference's GSPMD partitions the same einsums), long sequences in
+    ``SHARDED_BLOCK`` blocks.  Batch shards over
+    the data dims; query heads over ``model`` where they divide it and
+    whole GQA groups stay on a rank; K/V heads shard with them where
+    every rank holds whole K/V heads, else K/V replicate over ``model``
+    and each rank slices the heads its queries read."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    G = H // K
+    msize = mesh.size(names.index("model"))
+    n_dp = 1
+    for i, n in enumerate(names):
+        n_dp *= mesh.size(i) if n != "model" else 1
+    rows = B % n_dp == 0
+    Hl = H // msize
+    heads = H % msize == 0 and (Hl % G == 0 or G % Hl == 0)
+    kv_heads = heads and Hl % G == 0
+
+    def plc(head_dim):
+        return tuple((Shard(head_dim) if head_dim is not None else
+                      Replicate()) if n == "model" else
+                     (Shard(0) if rows else Replicate()) for n in names)
+
+    q_plc = plc(2 if heads else None)
+    kv_plc = plc(2 if kv_heads else None)
+
+    def local(ql, kl, vl, pl):
+        ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+        if heads and not kv_heads:          # this rank's query heads
+            h0 = mesh.get_local_rank("model") * Hl
+            kl = kl[:, :, h0 // G:(h0 + Hl - 1) // G + 1]
+            vl = vl[:, :, h0 // G:(h0 + Hl - 1) // G + 1]
+        if ql.shape[1] >= BLOCKED_ATTN_THRESHOLD:
+            out = blocked_attention(
+                ql, kl, vl, pl, pl, causal=cfg.causal, window=window,
+                scale=cfg.head_dim ** -0.5, block_q=SHARDED_BLOCK,
+                block_k=SHARDED_BLOCK)
+        else:
+            out = _self_attention(ql, kl, vl, pl, cfg, window)
+        return _ContiguousGrad.apply(out)
+
+    fn = local_map(local, out_placements=list(q_plc),
+                   in_placements=(q_plc, kv_plc, kv_plc, plc(None)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v, on_mesh(pos2d, mesh))
 
 
 def attn_full(p, x, cfg, positions, *,
@@ -246,9 +383,12 @@ def attn_prefill(p, x, cfg, positions, cache_len: int,
     y = _self_attention(q, k, v, pos2d, cfg, cfg.sliding_window)
     y = matmul(y.reshape(B, S, -1), p["wo"])
 
-    cache = init_kv_cache(cfg, B, cache_len, cache_dtype, device=x.device)
     take = min(S, cache_len)
-    if cfg.sliding_window and cache_len <= cfg.sliding_window:
+    ring = bool(cfg.sliding_window) and cache_len <= cfg.sliding_window
+    if ring or S != cache_len:
+        cache = init_kv_cache(cfg, B, cache_len, cache_dtype,
+                              device=x.device)
+    if ring:
         # Ring: the reference writes through a one-hot contraction (so
         # SPMD can partition it); a scatter-add by index onto the zero
         # cache gives the same values, colliding slots summed as the
@@ -263,11 +403,34 @@ def attn_prefill(p, x, cfg, positions, cache_len: int,
         pos_val = torch.zeros((B, cache_len), device=x.device).scatter_add(
             1, slots, ps.float()).to(torch.int32)
         cache["pos"] = torch.where(written, pos_val, cache["pos"])
+    elif S == cache_len:
+        # the prompt fills the cache: K/V themselves, no zeros to copy
+        # into (nor, on DTensors, a replicated cache)
+        cache = {"k": k.to(cache_dtype), "v": v.to(cache_dtype),
+                 "pos": pos2d.to(torch.int32)}
     else:
         cache["k"][:, :take] = k[:, :take].to(cache_dtype)
         cache["v"][:, :take] = v[:, :take].to(cache_dtype)
         cache["pos"][:, :take] = pos2d[:, :take]
     return y, cache
+
+
+def _where(cond, new, leaf):
+    """``torch.where(cond, new, leaf)`` for a cache write.  On a DTensor
+    cache (the dry run) the condition and the new values are laid out as
+    the cache first, where their dims are the cache's (broadcast dims
+    replicate), so the write stays on each rank's shard instead of
+    DTensor gathering the cache."""
+    if hasattr(leaf, "device_mesh"):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = leaf.device_mesh
+
+        def follow(t):
+            return on_mesh(t, mesh).redistribute(mesh, [
+                p if isinstance(p, Shard) and t.shape[p.dim] ==
+                leaf.shape[p.dim] else Replicate() for p in leaf.placements])
+        cond, new = follow(cond), follow(new)
+    return torch.where(cond, new, leaf)
 
 
 def attn_decode(p, x, cfg, cache, write_pos):
@@ -296,14 +459,13 @@ def attn_decode(p, x, cfg, cache, write_pos):
         """Put new (B, K, hd) into leaf at the one-hot slot."""
         if isinstance(leaf, dict):
             nq, ns = _kv_quantize(new)
-            return {"q": torch.where(oh4, nq[:, None], leaf["q"]),
-                    "s": torch.where(oh4, ns[:, None], leaf["s"])}
-        return torch.where(oh4, new[:, None].to(leaf.dtype), leaf)
+            return {"q": _where(oh4, nq[:, None], leaf["q"]),
+                    "s": _where(oh4, ns[:, None], leaf["s"])}
+        return _where(oh4, new[:, None].to(leaf.dtype), leaf)
 
     kc = write(cache["k"], k[:, 0])
     vc = write(cache["v"], v[:, 0])
-    pc = torch.where(oh, write_pos[:, None].to(cache["pos"].dtype),
-                     cache["pos"])
+    pc = _where(oh, write_pos[:, None].to(cache["pos"].dtype), cache["pos"])
     mask = make_mask(write_pos[:, None], pc, causal=cfg.causal,
                      window=cfg.sliding_window)
     y = masked_attention(q, _kv_resolve(kc, q.dtype),

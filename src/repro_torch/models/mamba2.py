@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, rms_norm_gated, softplus
+from .layers import dense_init, per_rank, rms_norm_gated, softplus
 
 
 def _dims(cfg):
@@ -153,6 +153,12 @@ def mamba_apply_full(p, x, cfg, state: Optional[dict] = None,
     Outputs at padded positions are garbage and must be discarded.  A
     row with lengths[b] == 0 keeps its incoming state.
     """
+    if hasattr(x, "device_mesh"):       # DTensors: per rank, see per_rank
+        st = (None, None) if state is None else (state["h"], state["conv"])
+        return per_rank(
+            lambda pl, xl, h, conv, ln: mamba_apply_full(
+                pl, xl, cfg, None if h is None else {"h": h, "conv": conv},
+                ln), p, [x, *st, lengths], 3)
     s = cfg.ssm
     d_in, H, d_xbc = _dims(cfg)
     hd, ds = s.head_dim, s.d_state
@@ -212,6 +218,10 @@ def mamba_apply_full(p, x, cfg, state: Optional[dict] = None,
 
 def mamba_decode_step(p, x, cfg, state) -> Tuple[torch.Tensor, dict]:
     """x: (B,1,d) -> (y (B,1,d), new state)."""
+    if hasattr(x, "device_mesh"):       # DTensors: per rank, see per_rank
+        return per_rank(lambda pl, xl, h, conv: mamba_decode_step(
+            pl, xl, cfg, {"h": h, "conv": conv}),
+            p, [x, state["h"], state["conv"]], 3)
     s = cfg.ssm
     d_in, H, d_xbc = _dims(cfg)
     hd, ds = s.head_dim, s.d_state

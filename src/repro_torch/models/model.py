@@ -61,9 +61,65 @@ from . import mamba2 as M
 from . import moe as MOE
 from . import rwkv6 as R
 from .layers import dense_init, embed_init, matmul, mlp_apply, mlp_init, \
-    rms_norm, softmax_cross_entropy
+    per_rank, rms_norm, softmax_cross_entropy, sum_over
 
 Params = Dict[str, Any]
+
+# Set by the dry run (``repro_torch.launch.dryrun``): a spec (the
+# entries of the reference's PartitionSpec, e.g. (("data",), None,
+# "model")) for the residual stream between layers.  With ``d`` sharded
+# on `model` the per-device residual checkpoint shrinks by the model-axis
+# size.  Applies to DTensor activations only: each layer's output is
+# redistributed to it, as the reference's ``with_sharding_constraint``.
+ACT_SHARDING = None
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``.  On DTensors (the dry run) each rank looks up
+    its own rows of tokens inside ``local_map``: DTensor's gather over a
+    sharded table has no strategy for tokens sharded over two mesh dims.
+    A table whose vocab shards over ``model`` stays sharded (each rank
+    looks up the tokens of its vocab slice, zeros elsewhere, and the
+    ``model`` group sums them: Megatron's vocab-parallel embedding);
+    any other table is gathered (``per_rank``)."""
+    if not (hasattr(tokens, "device_mesh") or hasattr(table, "device_mesh")):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (table if isinstance(table, DTensor) else tokens).device_mesh
+    m_i = mesh.mesh_dim_names.index("model")
+    if not (isinstance(table, DTensor) and table.placements[m_i].is_shard(0)
+            and isinstance(tokens, DTensor)):
+        return per_rank(lambda pl, t: pl["t"][t], {"t": table}, [tokens], 1)
+    group = mesh.get_group("model")
+    rows = tuple(Shard(0) if i != m_i and p.is_shard(0) else Replicate()
+                 for i, p in enumerate(tokens.placements))
+    tab = tuple(Shard(0) if i == m_i else Replicate()
+                for i in range(mesh.ndim))
+    tab_grad = tuple(Shard(0) if i == m_i else
+                     (Partial() if rows[i].is_shard() else Replicate())
+                     for i in range(mesh.ndim))
+
+    def local(t, tok):
+        n = t.shape[0]
+        rel = tok.long() - mesh.get_local_rank("model") * n
+        ok = (rel >= 0) & (rel < n)
+        e = t[rel.clamp(0, n - 1)] * ok[..., None].to(t.dtype)
+        return sum_over(e, group)
+
+    return local_map(local, out_placements=list(rows),
+                     in_placements=(tab, rows),
+                     in_grad_placements=(tab_grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+def _constrain_act(x):
+    if ACT_SHARDING is None or not hasattr(x, "device_mesh"):
+        return x
+    from ..launch.sharding import fit_spec, placements
+    mesh = x.device_mesh
+    spec = fit_spec(mesh, tuple(x.shape), ACT_SHARDING)
+    return x.redistribute(mesh, placements(mesh, spec))
 
 
 def tree_map(fn: Callable, tree):
@@ -82,6 +138,21 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_map_with_path(fn: Callable, tree, path: str = ""):
+    """``fn(path, leaf)`` over every leaf, ``path`` the leaf's keys and
+    list indices joined by ``/`` (``"groups/0/attn/wq"``), as the
+    reference's sharding policy names jax tree paths."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path
+                                      else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{path}/{i}" if path
+                                             else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def layer_slice(group: Params, l: int) -> Params:
@@ -238,7 +309,7 @@ class LM:
             parts.append(matmul(batch["embeds"].to(cdt),
                                 p["frontend_proj"].to(cdt)))
         if batch.get("tokens") is not None:
-            parts.append(p["embed"].to(cdt)[batch["tokens"]])
+            parts.append(_lookup(p["embed"].to(cdt), batch["tokens"]))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         B, S = x.shape[:2]
         positions = batch.get("positions")
@@ -360,6 +431,7 @@ class LM:
         saving its activations, where autograd records."""
         cfg = self.cfg
         B = x.shape[0]
+        x = _constrain_act(x)
         keep = cache_len is not None
         attn_clen = self.attn_cache_len(cache_len) if keep else None
         ckpt = _checkpointed if remat and torch.is_grad_enabled() \
@@ -385,7 +457,7 @@ class LM:
                     x, cache, a = ckpt(self._attn_layer_full,
                                        layer_slice(gp, l), x, positions,
                                        attn_clen)
-                    return (x, aux + a), cache
+                    return (_constrain_act(x), aux + a), cache
 
                 (x, aux_total), cache = _scan(body, (x, aux_total), count,
                                               keep)
@@ -395,8 +467,9 @@ class LM:
                     if kind == "wkv" else (self.mamba_layer_full, mamba_init)
 
                 def body(x, l):
-                    return ckpt(layer, layer_slice(gp, l), x,
-                                state(gstate, l, init))
+                    x, new = ckpt(layer, layer_slice(gp, l), x,
+                                  state(gstate, l, init))
+                    return _constrain_act(x), new
 
                 x, new_states = _scan(body, x, count, keep)
                 caches.append(new_states)
@@ -417,9 +490,10 @@ class LM:
                     return x, {"mamba": m_new, "attn": cache}
 
                 def body(x, l):
-                    return ckpt(super_block, layer_slice(gp, l), x,
-                                None if mstates is None
-                                else layer_slice(mstates, l))
+                    x, new = ckpt(super_block, layer_slice(gp, l), x,
+                                  None if mstates is None
+                                  else layer_slice(mstates, l))
+                    return _constrain_act(x), new
 
                 x, new = _scan(body, x, count, keep)
                 caches.append(new)
@@ -530,7 +604,7 @@ class LM:
         p = self.cast_params(p)
         if write_pos is None:
             write_pos = cache["next_pos"]
-        x = p["embed"].to(self.compute_dtype)[tokens]    # (B,1,d)
+        x = _lookup(p["embed"].to(self.compute_dtype), tokens)    # (B,1,d)
         new_caches = []
         for gi, (kind, count) in enumerate(self.plan):
             gp = p["groups"][gi]
@@ -608,15 +682,22 @@ def _scan(body: Callable, carry, n: int, keep: bool):
     """``lax.scan`` over layers 0..n-1: ``body(carry, l) -> (carry, y)``.
     With ``keep`` the ys are stacked on a new leading axis, each written
     into the stack as its layer gives it (the peak is the stack plus one
-    layer's y, not two copies); else they are dropped (None)."""
-    out = None
+    layer's y, not two copies); else they are dropped (None).  DTensor
+    ys (the dry run) are stacked at the end instead: an empty stack of
+    them would be replicated, and the stack keeps their shards."""
+    out, ys = None, []
     for l in range(n):
         carry, y = body(carry, l)
-        if keep:
+        if keep and hasattr(tree_leaves(y)[0], "device_mesh"):
+            ys.append(y)
+        elif keep:
             if out is None:
                 out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
                                y)
             _put(out, y, l)
+    if ys:
+        it = [iter(tree_leaves(y)) for y in ys]
+        out = tree_map(lambda _: torch.stack([next(i) for i in it]), ys[0])
     return carry, out
 
 

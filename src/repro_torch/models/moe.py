@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with sort-based token dispatch (port of
-``repro.models.moe``, the mesh-less path).
+``repro.models.moe``).
 
 Two architectures use this block:
   * mixtral-8x7b      — 8 experts, top-2, no shared experts.
@@ -18,9 +18,14 @@ backwards gather through the inverse mapping (the reference's
 computes all of this in plain jnp (no Pallas kernel), and so does the
 port, in plain PyTorch.
 
+Expert parallelism (``moe_apply_expert_parallel``, the reference's
+``shard_map`` path): experts shard over the mesh's ``model`` dim, tokens
+over its data dims, and tokens travel to the rank that owns their expert
+and back with ``all_to_all_single`` on the ``model`` group, inside
+``local_map`` (the analogue of ``shard_map``).  ``moe_apply_auto`` takes
+it when ``MESH`` is set and the experts divide the ``model`` dim.
+
 ``moe_apply_dense`` is the naive loop-over-experts oracle used by tests.
-Expert parallelism over a mesh is not ported: ``moe_apply_auto`` is
-``moe_apply``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,20 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, matmul
+from .layers import _ContiguousGrad, dense_init, matmul, on_mesh, per_rank
+
+# Set by the launch layer (the dry run, or a serving engine on a mesh):
+# the mesh dims that shard the token dimension (("data",) or ("pod",
+# "data")) and the number of dispatch groups (= number of token shards).
+# Grouped dispatch keeps every sort/scatter/gather local to its group.
+DATA_AXES = None
+N_GROUPS = 1
+# The DeviceMesh of the expert-parallel path (None: the baseline, one
+# device's sort dispatch).
+MESH = None
+# all_to_all_single calls made by the expert-parallel path (four per MoE
+# layer per forward), for callers that check the path ran.
+N_ALL_TO_ALL = 0
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +93,14 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Routes per expert, (E,) int64: ``bincount`` with a static output
+    shape (fake tensors, as the dry run uses, cannot size a bincount)."""
+    flat = idx.reshape(-1).long()
+    return torch.zeros(E, dtype=torch.long, device=idx.device).index_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def route(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Top-k routing in float32.  x: (S, d).  Returns (gates (S,k),
@@ -88,8 +114,7 @@ def route(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
     # flows through P only (f counts integer routes, as the reference's
     # one-hot of the indices)
     S = x.shape[0]
-    f = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float() \
-        / (S * m.top_k)                                  # fraction routed
+    f = _counts(idx, m.n_experts).float() / (S * m.top_k)   # fraction routed
     P = probs.mean(0)                                    # mean router prob
     aux = m.n_experts * torch.sum(f * P)
     return gates, idx, aux
@@ -189,7 +214,7 @@ def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     order = torch.sort(eid, stable=True).indices         # (Lg,)
     rank = torch.empty_like(order)                       # inverse perm
     rank[order] = torch.arange(Lg, device=dev)
-    counts = torch.bincount(eid, minlength=E)            # (E,)
+    counts = _counts(eid, E)                             # (E,)
     starts = torch.cumsum(counts, 0) - counts            # (E,)
 
     # slot (e, c) pulls the c-th replica routed to expert e
@@ -208,42 +233,216 @@ def dispatch_plan(idx: torch.Tensor, E: int, C: int):
     return src_token, slot_valid, slot, keep, src_replica
 
 
-def moe_apply(p, x, cfg, *, capacity: int = 0):
-    """MoE FFN with sort dispatch.  x: (S, d) flattened tokens.  Returns
-    (y (S,d), aux_loss).
-
-    capacity: per-expert capacity; 0 derives it from ``capacity_factor``
-    (ceil(cf * replicas / E), padded to a multiple of 8).  One dispatch
-    group (the reference's grouping follows data shards, and the port
-    has no mesh).
-    """
-    m = cfg.moe
+def _apply_group(p, x, gates, idx, cfg, C: int):
+    """One dispatch group: tokens x (Sg, d) with their routes -> the
+    routed experts' weighted sum (Sg, d)."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
     S, d = x.shape
-    E, k = m.n_experts, m.top_k
-    gates, idx, aux = route(p["router"], x, cfg)
-    Lg = S * k                                           # replicas
-    if capacity <= 0:
-        cap = int(m.capacity_factor * Lg / E) + 1
-        capacity = -(-cap // 8) * 8
-    C = capacity
-
     src_token, slot_valid, slot, keep, src_replica = dispatch_plan(
         idx, E, C)
     xe = _Dispatch.apply(x, src_token, slot_valid, slot, keep, k)
     ye = _expert_ffn(p, xe.reshape(E, C, d), cfg.act)    # (E, C, d)
     ys = _Combine.apply(ye.reshape(E * C, d), slot, keep, src_replica,
                         slot_valid)                      # (Lg, d)
-    y = (ys.reshape(S, k, d) * gates[..., None].to(ye.dtype)).sum(dim=1)
+    return (ys.reshape(S, k, d) * gates[..., None].to(ye.dtype)).sum(dim=1)
 
+
+def _capacity(cfg, n_replicas: int, capacity: int) -> int:
+    if capacity <= 0:
+        cap = int(cfg.moe.capacity_factor * n_replicas / cfg.moe.n_experts) \
+            + 1
+        capacity = -(-cap // 8) * 8
+    return capacity
+
+
+def _shared(p, x):
+    sh = p["shared"]
+    h = F.silu(x @ sh["w_gate"].to(x.dtype)) * (x @ sh["w_up"].to(x.dtype))
+    return h @ sh["w_down"].to(x.dtype)
+
+
+def moe_apply(p, x, cfg, *, capacity: int = 0):
+    """MoE FFN with grouped sort dispatch.  x: (S, d) flattened tokens.
+    Returns (y (S,d), aux_loss).
+
+    Tokens split into ``N_GROUPS`` groups (batch-major, so a group lives
+    on one token shard), each with its own sort, capacity and un-sort.
+    capacity: per-expert per-group capacity; 0 derives it from
+    ``capacity_factor`` (ceil(cf * replicas per group / E), padded to a
+    multiple of 8).
+    """
+    if hasattr(x, "device_mesh"):
+        # DTensors (the dry run's baseline): each rank dispatches its own
+        # tokens, one group, over the gathered expert banks (per_rank)
+        def local(pl, xl):
+            y, aux = _moe_groups(pl, xl, cfg, capacity, 1)
+            return y, aux[None]
+        y, aux = per_rank(local, p, [x], 2)
+        return y, aux.mean()
+    return _moe_groups(p, x, cfg, capacity, N_GROUPS)
+
+
+def _moe_groups(p, x, cfg, capacity: int, n_groups: int):
+    m = cfg.moe
+    S, d = x.shape
+    gates, idx, aux = route(p["router"], x, cfg)
+    G = n_groups if S % max(n_groups, 1) == 0 else 1
+    C = _capacity(cfg, S * m.top_k // G, capacity)
+    if G == 1:
+        y = _apply_group(p, x, gates, idx, cfg, C)
+    else:
+        Sg = S // G
+        y = torch.cat([_apply_group(p, x[g * Sg:(g + 1) * Sg],
+                                    gates[g * Sg:(g + 1) * Sg],
+                                    idx[g * Sg:(g + 1) * Sg], cfg, C)
+                       for g in range(G)])
     if "shared" in p:
-        sh = p["shared"]
-        h = F.silu(x @ sh["w_gate"].to(x.dtype)) * (x @ sh["w_up"].to(x.dtype))
-        y = y + h @ sh["w_down"].to(x.dtype)
+        y = y + _shared(p, x)
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE (the reference's shard_map path)
+#
+# Shard experts on `model`, keep tokens on the data dims, and move each
+# token's activation to the rank that owns its expert and back with
+# all_to_all on the `model` group: per-device traffic is O(local tokens)
+# instead of an all-gather of the dispatch tensor.  Used when MESH is set
+# and n_experts % model == 0; other archs keep the baseline path.
+# ---------------------------------------------------------------------------
+
+def _all_to_all(x, split_axis: int, concat_axis: int, group, msize: int):
+    """``jax.lax.all_to_all(x, split_axis, concat_axis, tiled=True)`` on
+    ``group``: chunk j of ``split_axis`` goes to rank j, and the chunks
+    received from ranks 0..msize-1 concatenate along ``concat_axis``."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    global N_ALL_TO_ALL
+    N_ALL_TO_ALL += 1
+    shp = list(x.shape)
+    c = shp[split_axis] // msize
+    xs = x.reshape(shp[:split_axis] + [msize, c] + shp[split_axis + 1:])
+    xs = xs.movedim(split_axis, 0).contiguous()          # (msize, chunk)
+    chunk = xs.shape[1:]
+    got = all_to_all_single_autograd(xs.reshape(msize * chunk[0],
+                                                *chunk[1:]),
+                                     None, None, group)
+    got = got.reshape(msize, *chunk)                     # [i] from rank i
+    out = got.movedim(0, concat_axis)
+    shp_out = list(chunk)
+    shp_out[concat_axis] *= msize
+    return out.reshape(shp_out)
+
+
+def moe_apply_expert_parallel(p, x, cfg, *, capacity: int = 0):
+    """The expert-parallel MoE FFN on ``MESH``.  x (S, d) and the params
+    are DTensors on ``MESH`` (plain tensors count as replicated); returns
+    (y (S, d), aux) as the caller gave x: a DTensor, or a plain tensor.
+    Falls back to ``moe_apply`` where the tokens per group do not divide
+    the ``model`` dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = MESH
+    m = cfg.moe
+    S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    names = mesh.mesh_dim_names
+    msize = mesh.size(names.index("model"))
+    G = N_GROUPS if S % max(N_GROUPS, 1) == 0 else 1
+    Sg = S // G
+    if Sg % msize != 0:
+        return moe_apply(p, x, cfg, capacity=capacity)
+    Sl = Sg // msize                  # tokens per device
+    Lg = Sl * k
+    C = _capacity(cfg, Lg, capacity)
+    dp = DATA_AXES or ("data",)
+    model_group = mesh.get_group("model")
+    plain = not isinstance(x, DTensor)
+
+    # the block's params, int8 banks ({"q", "s"}) included, as one flat
+    # list: expert banks (E on dim 0) shard over model, the rest
+    # (router, scales, shared experts) replicate
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    leaves, spec = tree_flatten(p)
+    expert = [t.ndim == 3 and t.shape[0] == E and t.shape[1] > 1
+              for t in leaves]
+
+    def local_fn(x_dl, *pl):
+        pl = tree_unflatten(list(pl), spec)
+        # x_dl (Sg, d/msize): tokens on data, hidden on model; an
+        # all_to_all trades hidden for tokens -> (Sl, d)
+        x_dl = _ContiguousGrad.apply(x_dl)
+        d_l = x_dl.shape[-1]
+        xt = x_dl.reshape(msize, Sl, d_l)
+        xl = _all_to_all(xt, 0, 2, model_group, msize)[0]       # (Sl, d)
+        gates, idx, aux = route(pl["router"], xl, cfg)
+
+        src_token, slot_valid, slot, keep, src_replica = dispatch_plan(
+            idx, E, C)
+        xe = _Dispatch.apply(xl, src_token, slot_valid, slot, keep, k)
+        xe = xe.reshape(E, C, d)
+        # tokens -> owning expert rank (split E, concat capacity)
+        xa = _all_to_all(xe, 0, 1, model_group, msize)   # (E_l, ms*C, d)
+        ye = _expert_ffn(pl, xa, cfg.act)
+        # results -> token owners
+        ye = _all_to_all(ye, 1, 0, model_group, msize)   # (E, C, d)
+        ys = _Combine.apply(ye.reshape(E * C, d), slot, keep, src_replica,
+                            slot_valid)                  # (Lg, d)
+        y = (ys.reshape(Sl, k, d) * gates[..., None].to(ys.dtype)).sum(1)
+        if "shared" in pl:
+            y = y + _shared(pl, xl)
+        # the inverse hidden <-> token all_to_all: back to (Sg, d_l)
+        yt = _all_to_all(y.reshape(Sl, msize, d_l), 1, 0, model_group,
+                         msize)                           # (Sg, 1, d_l)
+        # aux: one value per device; the data shards' values are
+        # averaged below, as the reference's pmean and mean
+        return _ContiguousGrad.apply(yt.reshape(Sg, d_l)), aux[None]
+
+    def plc(spec):
+        out = []
+        for name in names:
+            dim = None
+            for i, ax in enumerate(spec):
+                if ax == name or (ax == "DP" and name in dp):
+                    dim = i
+            out.append(Replicate() if dim is None else Shard(dim))
+        return tuple(out)
+
+    w_plc, rep = plc(("model", None, None)), plc(())
+    # gradients: every rank routes its own tokens, so a replicated
+    # weight's gradient sums over all ranks, an expert bank's over the
+    # data ranks
+    all_partial = (Partial(),) * mesh.ndim
+    w_grad = tuple(p if p.is_shard() else Partial() for p in w_plc)
+    x_plc = plc(("DP", "model"))
+    fn = local_map(
+        local_fn,
+        out_placements=(x_plc, plc(("DP",))),
+        in_placements=(x_plc,) + tuple(w_plc if e else rep for e in expert),
+        in_grad_placements=(x_plc,) + tuple(w_grad if e else all_partial
+                                            for e in expert),
+        device_mesh=mesh, redistribute_inputs=True)
+    args = [on_mesh(t, mesh) for t in [x, *leaves]]
+    y, aux = fn(*args)
+    aux = aux.mean()
+    if plain:
+        return _gathered(y), _gathered(aux)
+    return y, aux
+
+
+def _gathered(t):
+    """A DTensor's global value as a plain tensor, its collective waited
+    for."""
+    t = t.full_tensor()
+    return t.wait() if hasattr(t, "wait") else t
+
+
 def moe_apply_auto(p, x, cfg, *, capacity: int = 0):
-    """The reference's mesh-aware entry; without a mesh, ``moe_apply``."""
+    """Expert-parallel path when configured & divisible, else baseline."""
+    if MESH is not None and cfg.moe.n_experts % MESH.size(
+            MESH.mesh_dim_names.index("model")) == 0:
+        return moe_apply_expert_parallel(p, x, cfg, capacity=capacity)
     return moe_apply(p, x, cfg, capacity=capacity)
 
 

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, group_norm_heads
+from .layers import dense_init, group_norm_heads, per_rank
 
 LOG_W_MIN = -2.0  # per-step decay floor (see module docstring)
 
@@ -152,6 +152,13 @@ def rwkv_apply_full(p, x, cfg, state: Optional[dict] = None,
     Padded outputs are garbage and must be discarded; a row with
     lengths[b] == 0 keeps its incoming state.
     """
+    if hasattr(x, "device_mesh"):       # DTensors: per rank, see per_rank
+        st = (None, None) if state is None \
+            else (state["S"], state["x_prev"])
+        return per_rank(
+            lambda pl, xl, S, xp, ln: rwkv_apply_full(
+                pl, xl, cfg, None if S is None else {"S": S, "x_prev": xp},
+                ln), p, [x, *st, lengths], 3)
     H, hd = _dims(cfg)
     B, T, d = x.shape
     if state is None:
@@ -199,6 +206,10 @@ def rwkv_apply_full(p, x, cfg, state: Optional[dict] = None,
 
 def rwkv_decode_step(p, x, cfg, state) -> Tuple[torch.Tensor, dict]:
     """x: (B,1,d) -> (y (B,1,d), new state)."""
+    if hasattr(x, "device_mesh"):       # DTensors: per rank, see per_rank
+        return per_rank(lambda pl, xl, S, xp: rwkv_decode_step(
+            pl, xl, cfg, {"S": S, "x_prev": xp}),
+            p, [x, state["S"], state["x_prev"]], 3)
     x_shift = state["x_prev"][:, 0:1].to(x.dtype)
     r, k, v, g, logw = _proj(p, x, x_shift, cfg)
     r32, k32, v32 = (a[:, 0].float() for a in (r, k, v))

@@ -50,7 +50,22 @@ and writes it in place, ``branch`` copies the parent's page,
 ``free`` releases it and ``swap_out``/``swap_in`` spill and restore it
 with the KV pages.  Admission is all-or-nothing across both pools.
 
-Not in this slice: meshes.
+Prefill path (``EngineConfig.prefill``): ``"flash"`` (default) runs
+the flash-prefill kernel seam per layer; ``"dense"`` is the reference's
+one-shot oracle, plain masked attention over the bucket
+(``make_mask`` + ``masked_attention``), with K/V written to the pool the
+same way.
+
+``EngineConfig.mesh`` (a ``DeviceMesh`` from ``launch.mesh``) places the
+pool by the serve policy (``launch.sharding.pool_spec``: pages on
+``model``), commits the per-row operands batch -> ``data``
+(``engine_batch_spec``) and the block tables and tree metadata
+replicated, each as a DTensor over the engine's local tensors; every
+divisibility fallback lands in ``shard_fallbacks``.  A 1-device mesh is
+the equivalence oracle: the mesh-less engine's math on the same bits.
+The kernels are per device (``kernels.ops.check_mesh_compat`` refuses a
+larger mesh on the card), and the plain path does not partition a
+larger mesh either: that raises.
 """
 from __future__ import annotations
 
@@ -78,6 +93,7 @@ class EngineConfig:
     max_batch: int = 64
     max_seq_len: int = 512
     attention: str = "paged"       # "paged" | "tree" (see module doc)
+    prefill: str = "flash"         # "flash" | "dense" (dense = oracle)
     trace_logits: bool = False     # keep per-step logits (tests only)
     # prompts longer than this many tokens prefill in page-streamed
     # segments instead of one bucket (None = always one bucket)
@@ -87,13 +103,27 @@ class EngineConfig:
     # A page holds every recurrent layer's state (zamba2-7b: 148.5 MiB in
     # float32), so large models set this well below n_pages.
     n_state_pages: Optional[int] = None
+    # DeviceMesh of the serve layout (launch.mesh.make_host_mesh): the
+    # pool's page axis on "model", per-row operands batch -> "data",
+    # block tables and tree metadata replicated.  None keeps the
+    # single-device engine; a 1-device mesh is the equivalence oracle.
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         if self.attention not in ("paged", "tree"):
             raise ValueError(
                 f"EngineConfig.attention must be 'paged' or 'tree', got "
                 f"{self.attention!r}")
+        if self.prefill not in ("flash", "dense"):
+            raise ValueError(
+                f"EngineConfig.prefill must be 'flash' or 'dense', got "
+                f"{self.prefill!r}")
         if self.prefill_chunk_tokens is not None:
+            if self.prefill == "dense":
+                raise ValueError(
+                    "prefill='dense' is the one-shot equivalence oracle and "
+                    "cannot stream long prompts in segments — drop "
+                    "prefill_chunk_tokens or use prefill='flash'")
             if self.prefill_chunk_tokens < self.page_size:
                 raise ValueError(
                     f"prefill_chunk_tokens={self.prefill_chunk_tokens} is "
@@ -134,7 +164,8 @@ class PagedEngine:
         # last physical page is the dump target for padded batch rows
         self.dump_page = ecfg.n_pages - 1
         self.alloc = PageAllocator(ecfg.n_pages - 1, ecfg.page_size)
-        self.runtimes = build_runtimes(model)
+        self.runtimes = build_runtimes(model,
+                                       dense=ecfg.prefill == "dense")
         self.n_kv_layers = total_kv_layers(self.runtimes)
         # attention-free models keep a zero-layer pool: the page axes
         # stay (block tables drive token bookkeeping), the tensors hold
@@ -142,6 +173,13 @@ class PagedEngine:
         self.pool = KVPool(self.n_kv_layers, ecfg.n_pages, ecfg.page_size,
                            max(cfg.n_kv_heads, 1), max(cfg.head_dim, 1),
                            dtype=torch.float32, device=self.device)
+        # mesh layout (EngineConfig.mesh): every divisibility fallback
+        # the serve policy takes lands in shard_fallbacks
+        self.mesh = ecfg.mesh
+        self.shard_fallbacks: list = []
+        self._row_plc: Dict[tuple, tuple] = {}
+        if self.mesh is not None:
+            self._place_pool()
         self.scale = cfg.head_dim ** -0.5 if cfg.head_dim else 1.0
         # recurrent-state pool (None for attention-only stacks)
         state_specs = collect_state_specs(self.runtimes)
@@ -193,6 +231,59 @@ class PagedEngine:
         """A host-built operand on the engine's device."""
         return torch.as_tensor(np.asarray(arr), device=self.device)
 
+    # ------------------------------------------------------------------
+    # Mesh placement
+    # ------------------------------------------------------------------
+    def _place_pool(self) -> None:
+        from ..launch.sharding import placements, pool_spec
+        mesh = self.mesh
+        ops.check_mesh_compat(mesh, use_kernel=self.device.type == "cuda")
+        if mesh.size() > 1:
+            raise NotImplementedError(
+                f"a {mesh.size()}-device mesh on the plain path: the "
+                f"engine's in-place pool writes have no DTensor partition "
+                f"(ROADMAP.md queue 3); use a 1-device mesh")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"engine on {self.device}")
+        spec = pool_spec(mesh, tuple(self.pool.k.shape),
+                         record=self.shard_fallbacks)
+        self.pool_placements = placements(mesh, spec)
+        self.pool_dtensors = tuple(
+            self._commit(t, self.pool_placements)
+            for t in (self.pool.k, self.pool.v))
+
+    def _commit(self, t: torch.Tensor, plc):
+        """``t`` as this rank's shard of a DTensor laid out by ``plc``."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, plc, run_check=False)
+
+    def _put_rows(self, arr) -> torch.Tensor:
+        """A batch-leading host operand (tokens, lengths, write pages /
+        slots, active mask) committed batch -> ``data``; the placement
+        is kept per shape, so a fallback is recorded once per shape.
+        Without a mesh, ``_put``."""
+        t = self._put(arr)
+        if self.mesh is None:
+            return t
+        plc = self._row_plc.get(t.shape)
+        if plc is None:
+            from ..launch.sharding import engine_batch_spec, placements
+            plc = self._row_plc[t.shape] = placements(
+                self.mesh, engine_batch_spec(self.mesh, tuple(t.shape),
+                                             record=self.shard_fallbacks))
+        return self._commit(t, plc).to_local()
+
+    def _put_repl(self, arr) -> torch.Tensor:
+        """A host operand that indexes the whole pool (block tables, the
+        tree step's page lists, bitmaps and lengths), committed
+        replicated."""
+        t = self._put(arr)
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import Replicate
+        return self._commit(t, (Replicate(),) * self.mesh.ndim).to_local()
+
     def _state_rows(self, seq_ids, n_rows: int) -> torch.Tensor:
         """(n_rows,) state page per row on the device: the dump page
         for padding rows and for attention-only stacks (whose steps get
@@ -202,7 +293,7 @@ class PagedEngine:
         for r, sid in enumerate(seq_ids):
             if sid is not None and sid in self.state_of:
                 srows[r] = self.state_of[sid]
-        return self._put(srows)
+        return self._put_rows(srows)
 
     def _state_in(self) -> dict:
         return self.state.arrays if self.state is not None else {}
@@ -401,8 +492,9 @@ class PagedEngine:
         self.n_prefill_calls += 1
         self.n_prefill_tokens += n_tokens
         logits = self._prefill_step(
-            self._put(tok).long(), self._put(pos), self._put(pages).long(),
-            self._put(slots).long(), self._put(lens), srows)
+            self._put_rows(tok).long(), self._put_rows(pos),
+            self._put_rows(pages).long(),
+            self._put_rows(slots).long(), self._put_rows(lens), srows)
         if self.ecfg.trace_logits:
             self.logits_trace.append(logits.float().cpu().numpy())
 
@@ -424,7 +516,7 @@ class PagedEngine:
         Tp = pow2_bucket(len(h.block_table), lo=1)
         tbl = np.zeros((1, Tp), np.int64)
         tbl[0, :len(h.block_table)] = h.block_table
-        tbl_t = self._put(tbl)
+        tbl_t = self._put_repl(tbl)
         srows = self._state_rows([h.seq_id], 1)
         for s0 in range(0, n, pct):
             s1 = min(s0 + pct, n)
@@ -442,8 +534,9 @@ class PagedEngine:
             self.n_prefill_calls += 1
             self.n_prefill_tokens += m
             logits = self._streamed_step(
-                self._put(tok), self._put(pos), self._put(pages),
-                self._put(slots), m, tbl_t, s0, srows)
+                self._put_rows(tok), self._put_rows(pos),
+                self._put_rows(pages),
+                self._put_rows(slots), m, tbl_t, s0, srows)
         if self.ecfg.trace_logits:
             self.logits_trace.append(logits.float().cpu().numpy())
 
@@ -783,20 +876,21 @@ class DecodeStream:
             act[j] = True
             rows[j] = i
 
-        lens_t = eng._put(lens)
+        lens_t = eng._put_rows(lens)
         if tree_mode:
             meta = eng.alloc.tree_metadata(rows, pad_page=eng.dump_page)
             eng._count_streamed_pages(live, meta.n_unique, meta.n_logical)
-            attend = eng._tree_attend(eng._put(meta.page_list),
-                                      eng._put(meta.page_mask),
-                                      eng._put(meta.page_lens),
+            attend = eng._tree_attend(eng._put_repl(meta.page_list),
+                                      eng._put_repl(meta.page_mask),
+                                      eng._put_repl(meta.page_lens),
                                       meta.n_unique)
         else:
             n_logical = sum(len(eng.alloc.seqs[i].block_table) for i in live)
             eng._count_streamed_pages(live, n_logical, n_logical)
-            attend = eng._paged_attend(eng._put(bt), lens_t)
-        logits = eng._decode_step(eng._put(tok), lens_t, eng._put(pages),
-                                  eng._put(slots), eng._put(act),
+            attend = eng._paged_attend(eng._put_repl(bt), lens_t)
+        logits = eng._decode_step(eng._put_rows(tok), lens_t,
+                                  eng._put_rows(pages),
+                                  eng._put_rows(slots), eng._put_rows(act),
                                   eng._state_rows(rows, B), attend)
         if ecfg.trace_logits:
             eng.logits_trace.append(logits.float().cpu().numpy())

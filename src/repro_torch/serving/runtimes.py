@@ -100,18 +100,24 @@ def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
 
 
 def _attn_prefill_layer(cfg, blk, x, ctx: PrefillCtx, kv_l, pool_k, pool_v,
-                        ffn):
+                        ffn, dense: bool = False):
     """One attention layer of a one-shot prefill bucket: K/V go straight
-    into the pool pages, attention runs the flash-prefill kernel seam."""
+    into the pool pages, attention runs the flash-prefill kernel seam, or
+    with ``dense`` the plain masked attention (the reference's oracle)."""
     B, T = x.shape[:2]
     scale = cfg.head_dim ** -0.5
     h = rms_norm(blk["ln1"], x, cfg.norm_eps)
     q, k, v = A._project_qkv(blk["attn"], h, cfg, ctx.pos)
     pool_k[kv_l, ctx.pages, ctx.slots] = k.to(pool_k.dtype)
     pool_v[kv_l, ctx.pages, ctx.slots] = v.to(pool_v.dtype)
-    y = ops.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                          scale=scale, causal=cfg.causal,
-                          window=cfg.sliding_window)
+    if dense:
+        mask = A.make_mask(ctx.positions, ctx.positions, causal=cfg.causal,
+                           window=cfg.sliding_window)
+        y = A.masked_attention(q, k, v, mask, scale=scale)
+    else:
+        y = ops.flash_prefill(q.contiguous(), k.contiguous(),
+                              v.contiguous(), scale=scale, causal=cfg.causal,
+                              window=cfg.sliding_window)
     x = x + matmul(y.reshape(B, T, -1), blk["attn"]["wo"])
     h = rms_norm(blk["ln2"], x, cfg.norm_eps)
     return x + ffn(blk, h)
@@ -171,11 +177,12 @@ class LayerRuntime:
     kind = ""
     n_kv_layers = 0
 
-    def __init__(self, model, gi: int, count: int):
+    def __init__(self, model, gi: int, count: int, dense: bool = False):
         self.model = model
         self.cfg = model.cfg
         self.gi = gi
         self.count = count
+        self.dense = dense          # prefill="dense": the masked oracle
 
     def state_specs(self) -> Dict[str, tuple]:
         return {}
@@ -199,8 +206,9 @@ class AttentionRuntime(LayerRuntime):
 
     kind = "attn"
 
-    def __init__(self, model, gi: int, count: int, kv_offset: int):
-        super().__init__(model, gi, count)
+    def __init__(self, model, gi: int, count: int, kv_offset: int,
+                 dense: bool = False):
+        super().__init__(model, gi, count, dense)
         self.kv_offset = kv_offset
         self.n_kv_layers = count
 
@@ -221,7 +229,7 @@ class AttentionRuntime(LayerRuntime):
         for l in range(self.count):
             x = _attn_prefill_layer(self.cfg, layer_slice(gp, l), x, ctx,
                                     self.kv_offset + l, pool_k, pool_v,
-                                    self._ffn)
+                                    self._ffn, self.dense)
         return x
 
     def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
@@ -309,8 +317,9 @@ class HybridRuntime(LayerRuntime):
 
     kind = "hybrid"
 
-    def __init__(self, model, gi: int, count: int, kv_offset: int):
-        super().__init__(model, gi, count)
+    def __init__(self, model, gi: int, count: int, kv_offset: int,
+                 dense: bool = False):
+        super().__init__(model, gi, count, dense)
         self.kv_offset = kv_offset
         self.n_kv_layers = count
         self.k_inner = self.cfg.attn_every
@@ -354,7 +363,8 @@ class HybridRuntime(LayerRuntime):
             lambda b, x, st: self.model.mamba_layer_full(
                 b, x, st, lengths=ctx.lengths),
             lambda b, x, kv_l: _attn_prefill_layer(
-                self.cfg, b, x, ctx, kv_l, pool_k, pool_v, self._mlp))
+                self.cfg, b, x, ctx, kv_l, pool_k, pool_v, self._mlp,
+                self.dense))
 
     def prefill_streamed(self, params, x, ctx: PrefillCtx, pool_k, pool_v,
                          state):
@@ -368,20 +378,21 @@ class HybridRuntime(LayerRuntime):
                 hist_idx, mask))
 
 
-def build_runtimes(model) -> list:
+def build_runtimes(model, dense: bool = False) -> list:
     """One runtime per ``cfg.layer_plan()`` group, with KV pool layer
-    offsets assigned in plan order."""
+    offsets assigned in plan order; ``dense`` prefills with the plain
+    masked attention (``EngineConfig.prefill="dense"``)."""
     cfg = model.cfg
     runtimes: List[LayerRuntime] = []
     kv_offset = 0
     for gi, (kind, count) in enumerate(cfg.layer_plan()):
         if kind == "attn":
             cls = MoERuntime if cfg.arch_type == "moe" else AttentionRuntime
-            rt = cls(model, gi, count, kv_offset)
+            rt = cls(model, gi, count, kv_offset, dense)
         elif kind in ("wkv", "mamba"):
             rt = RecurrentRuntime(model, gi, count, flavor=kind)
         elif kind == "hybrid_super":
-            rt = HybridRuntime(model, gi, count, kv_offset)
+            rt = HybridRuntime(model, gi, count, kv_offset, dense)
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
         kv_offset += rt.n_kv_layers

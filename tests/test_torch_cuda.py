@@ -9,7 +9,8 @@ the reference's kernel tests), its launch counter, the sampler's known
 answers on the card, a tiny engine on the card against the same
 engine on the CPU (plain path), and the plain-PyTorch paths of the
 families' training (MoE dispatch and combine, forward and backward) and
-of the contiguous cache, the card against the CPU.
+of the contiguous cache, the card against the CPU; a 1-device-mesh
+engine and the expert-parallel MoE layer on a world-size-1 NCCL group.
 """
 import dataclasses
 
@@ -743,3 +744,79 @@ def test_contiguous_decode_on_card_matches_cpu(cuda, arch):
                                        atol=1e-4)
     for a, b in zip(tree_leaves(c_d), tree_leaves(c_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1,1) mesh over a world-size-1 NCCL group (started once per
+    process, kept: a process has one default group)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device=cuda)
+    assert torch.distributed.get_backend() == "nccl"
+    return mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+def test_one_device_mesh_engine_on_card(cuda, nccl_mesh, mode):
+    """A tiny engine on a 1-device mesh gives the mesh-less engine's
+    tokens and logits on the card, the kernels launching, its pool
+    placed pages-on-model with no fallback; a 2-device mesh is refused
+    at the kernel seam."""
+    cfg = dataclasses.replace(get_config("tiny-lm"), n_layers=2, d_model=128,
+                              n_heads=4, n_kv_heads=2, head_dim=32,
+                              vocab_size=64)
+    lm = build_model(cfg, device=cuda)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+    prompts = [list(map(int, RNG.integers(0, 64, n))) for n in (13, 6, 21)]
+    outs = []
+    for mesh in (None, nccl_mesh):
+        ops.reset_launch_counts()
+        e = PagedEngine(lm, params, EngineConfig(
+            n_pages=64, page_size=8, max_batch=8, max_seq_len=96,
+            attention=mode, trace_logits=True, mesh=mesh), device=cuda)
+        sids = e.prefill_many(prompts)
+        ids = e.branch(sids[0], 3) + e.branch(sids[2], 2)
+        outs.append((e.decode(ids, 8, key=0, temperature=0.0),
+                     e.logits_trace))
+        kernel = ops.PAGED if mode == "paged" else ops.TREE
+        assert kernel.launches > 0 and ops.FLASH.launches > 0
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        np.testing.assert_array_equal(a, b)
+    assert e.shard_fallbacks == [] and e.pool_placements[1].is_shard(1)
+
+    class TwoDevices:
+        def size(self, dim=None):
+            return 2
+
+    with pytest.raises(ValueError, match="shard_map"):
+        ops.check_mesh_compat(TwoDevices(), use_kernel=True)
+
+
+@pytest.mark.cuda
+def test_expert_parallel_layer_on_one_rank_nccl(cuda, nccl_mesh):
+    """``moe_apply_expert_parallel`` on a (1,1) mesh of the NCCL group
+    against ``moe_apply`` on the card (the reference's 2e-4), its four
+    all_to_alls run."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import layer_slice
+    cfg = tiny_variant(get_config("deepseek-moe-16b"))
+    lm = build_model(cfg, device=cuda)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+    gi = next(i for i, g in enumerate(params["groups"]) if "moe" in g)
+    p = layer_slice(params["groups"][gi], 0)["moe"]
+    x = _rand((64, cfg.d_model), torch.float32, cuda)
+    y_ref, aux_ref = MOE.moe_apply(p, x, cfg)
+    saved = (MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS)
+    MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS = nccl_mesh, ("data",), 1
+    try:
+        n0 = MOE.N_ALL_TO_ALL
+        y, aux = MOE.moe_apply_auto(p, x, cfg)
+        assert MOE.N_ALL_TO_ALL - n0 == 4
+    finally:
+        MOE.MESH, MOE.DATA_AXES, MOE.N_GROUPS = saved
+    assert y.device == x.device and not hasattr(y, "device_mesh")
+    np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(float(aux), float(aux_ref), rtol=1e-6)

@@ -40,7 +40,10 @@ SUBMODULES = [
     "repro_torch.training.optimizer", "repro_torch.training.train",
     "repro_torch.training.checkpoint", "repro_torch.launch",
     "repro_torch.launch.train", "repro_torch.launch.serve",
-    "repro_torch.launch.steps",
+    "repro_torch.launch.steps", "repro_torch.launch.mesh",
+    "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+    "repro_torch.analysis", "repro_torch.analysis.roofline",
+    "repro_torch.analysis.report",
     "repro_torch.eval", "repro_torch.eval.harness",
 ]
 # files outside the package that import only the port

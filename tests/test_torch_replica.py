@@ -9,16 +9,13 @@ against ``repro``'s replica classes on the CPU.
   * stub sweeps over 1-3 replicas and random routers reproduce serial
     runs exactly; a one-element list unwraps to the plain sweep;
   * ``ReplicaServingLoop``: a degenerate trace equals the batch sweep
-    (stub lock-step; LM in both scheduling modes), random timed
-    workloads and routers never change a result, and a Poisson trace
-    served on two LM replicas matches the reference's routing, trees
-    and SLO report;
+    (stub and LM, both scheduling modes: the stub, which has no
+    row-level interface, is refilled in whole-step event mode, as in
+    the reference), random timed workloads and routers never change a
+    result, and a Poisson trace served on two LM replicas matches the
+    reference's routing, trees and SLO report;
   * ``ServingLoop.submit`` is the constructor's request, late;
   * ``launch.serve --replicas 2`` serves a workload to its end.
-
-The port's refill needs the backend's row-level interface (the
-reference falls back to whole-step scheduling on a stub), so the stub
-serving cases run lock-step; the LM cases cover refill.
 """
 import numpy as np
 import pytest
@@ -290,10 +287,63 @@ def test_replica_serving_matches_reference(stacks, refill):
 
 
 def test_replica_refill_needs_row_level_backends():
-    with pytest.raises(NotImplementedError, match="row-level"):
-        ReplicaServingLoop([StubBackend() for _ in range(2)], STUB_SCFG,
-                           [Request(prompt=p) for p in STUB_PROMPTS],
-                           cfg=ServingConfig(refill=True))
+    """Refill over whole-step replicas runs each loop in event mode:
+    the batch sweep's results, and the reference pool's routing, clock
+    and SLO report on its own stub."""
+    want = run_search_many(StubBackend(), STUB_SCFG, STUB_PROMPTS)
+    reqs = [(p, float(3 * i), i % 2) for i, p in enumerate(STUB_PROMPTS)]
+    pool = ReplicaServingLoop(
+        [StubBackend() for _ in range(2)], STUB_SCFG,
+        [Request(prompt=p, arrival=a, priority=q) for p, a, q in reqs],
+        max_live=2, cfg=ServingConfig(refill=True))
+    assert not any(lp._rowlevel for lp in pool.loops)
+    _assert_results_identical(want, pool.run())
+    jpool = JaxReplicaServingLoop(
+        [_RefStubBackend() for _ in range(2)],
+        JaxSearchConfig(method="beam", width=4, max_steps=3),
+        [JaxRequest(prompt=p, arrival=a, priority=q) for p, a, q in reqs],
+        max_live=2, cfg=JaxServingConfig(refill=True))
+    jpool.run()
+    assert pool.routed == jpool.routed
+    assert pool.slo.report() == jpool.slo.report()
+    assert pool.clock == jpool.clock
+
+
+def test_replica_serving_degenerate_trace_refill():
+    want = run_search_many(StubBackend(), STUB_SCFG, STUB_PROMPTS)
+    pool = ReplicaServingLoop(
+        [StubBackend() for _ in range(2)], STUB_SCFG,
+        [Request(prompt=p) for p in STUB_PROMPTS],
+        cfg=ServingConfig(refill=True))
+    _assert_results_identical(want, pool.run())
+    assert pool.slo.report()["n_finished"] == len(STUB_PROMPTS)
+    assert sorted(pool.routed) == list(range(len(STUB_PROMPTS)))
+    assert pool.clock == max(lp.clock for lp in pool.loops)
+
+
+@settings(max_examples=10, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(st.lists(st.tuples(st.integers(0, 50),     # arrival time
+                          st.integers(0, 2)),     # priority class
+                min_size=2, max_size=6),
+       st.integers(1, 3),                         # replicas
+       st.integers(0, 10 ** 6))                   # router seed
+def test_replica_serving_timed_workload_invariance_refill(specs, n_rep,
+                                                          seed):
+    rng = np.random.default_rng(seed)
+
+    def chaotic_router(eligible, loads):
+        return eligible[int(rng.integers(len(eligible)))]
+
+    prompts = [[100 + i, i % 7] for i in range(len(specs))]
+    reqs = [Request(prompt=p, arrival=float(a), priority=prio)
+            for p, (a, prio) in zip(prompts, specs)]
+    pool = ReplicaServingLoop([StubBackend() for _ in range(n_rep)],
+                              STUB_SCFG, reqs, max_live=2,
+                              cfg=ServingConfig(refill=True),
+                              router=chaotic_router)
+    _assert_results_identical(_stub_serial(prompts), pool.run())
+    assert pool.slo.report()["n_finished"] == len(reqs)
 
 
 def test_serving_loop_submit_matches_constructor():

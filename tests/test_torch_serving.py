@@ -13,13 +13,22 @@ against ``repro``'s ``ServingLoop`` on the CPU.
   * First-Finish halts each problem at its first answer;
   * refill never runs more decode iterations than lock-step;
   * a JSON trace loads into the reference's requests, and serves;
-  * refill refuses a backend without the row-level interface.
+  * a backend without the row-level interface is served by refill's
+    whole-step event mode, with the sweep's trees and the reference's
+    event-mode SLO report; on the stub backend of the reference's tests
+    both scheduling modes reproduce the sweep, random timed workloads
+    never change a result and nothing starves, and First-Finish stops
+    early (``tests/test_serving.py:104-170``).
 """
 import json
 
 import numpy as np
 import pytest
+from _hypothesis_shim import HealthCheck, given, settings, st
 from _torch_stack import make_stacks
+from test_serving import STUB_PROMPTS, _assert_results_identical
+from test_serving import StubBackend as RefStubBackend
+from test_torch_replica import STUB_SCFG, StubBackend, _stub_serial
 
 from repro.core import ETSConfig as JaxETSConfig
 from repro.core import Request as JaxRequest
@@ -86,6 +95,10 @@ def _jax_backend(stacks, attention="tree", n_pages=256, **ekw):
 
 def _scfg():
     return SearchConfig(ets=ETSConfig(**ETS_KW), **SCFG_KW)
+
+
+def _jax_scfg():
+    return JaxSearchConfig(ets=JaxETSConfig(**ETS_KW), **SCFG_KW)
 
 
 def _tree_view(res):
@@ -239,11 +252,8 @@ def test_load_trace_matches_reference(stacks, tmp_path):
     assert engine.alloc.used_pages == 0
 
 
-def test_refill_needs_row_level_backend(stacks, sweeps):
-    """Lock-step serves through the whole-step interface alone, with the
-    sweep's trees; refill asks for the row-level one."""
-    _, backend = _torch_backend(stacks)
-
+def _whole_step(backend):
+    """``backend`` without the row-level interface."""
     class WholeStep:
         def __getattr__(self, name):
             if name in ("expand_begin", "expand_finish", "open_stream",
@@ -251,10 +261,109 @@ def test_refill_needs_row_level_backend(stacks, sweeps):
                 raise AttributeError(name)
             return getattr(backend, name)
 
+    return WholeStep()
+
+
+def test_refill_needs_row_level_backend(stacks, sweeps):
+    """Token-level refill needs the row-level interface; without it the
+    loop runs refill's whole-step event mode, as the reference does:
+    the sweep's trees, and the reference's event-mode trees, clock and
+    SLO report.  Lock-step serves the same backend too."""
+    reqs = [Request(prompt=p, arrival=2.0 * i, priority=i % 2)
+            for i, p in enumerate(PROMPTS)]
+    jreqs = [JaxRequest(prompt=r.prompt, arrival=r.arrival,
+                        priority=r.priority) for r in reqs]
+    for refill in (True, False):
+        _, backend = _torch_backend(stacks)
+        loop = ServingLoop(_whole_step(backend), _scfg(), reqs, max_live=2,
+                           cfg=ServingConfig(refill=refill))
+        assert loop._rowlevel is False
+        got = loop.run()
+        _assert_same_results(sweeps["tree"], got)
+        _, jbackend = _jax_backend(stacks)
+        jloop = JaxServingLoop(_whole_step(jbackend), _jax_scfg(), jreqs,
+                               max_live=2,
+                               cfg=JaxServingConfig(refill=refill))
+        assert jloop._rowlevel is False
+        _assert_same_results(jloop.run(), got)
+        assert loop.slo.report() == jloop.slo.report()
+        assert loop.clock == jloop.clock
+    _, backend = _torch_backend(stacks)
+    assert ServingLoop(backend, _scfg(), reqs)._rowlevel is True
+
+
+def test_est_step_cost_overrides_the_slack_estimate(stacks):
+    _, backend = _torch_backend(stacks)
     reqs = [Request(prompt=p) for p in PROMPTS]
-    with pytest.raises(NotImplementedError, match="row-level"):
-        ServingLoop(WholeStep(), _scfg(), reqs,
-                    cfg=ServingConfig(refill=True))
-    loop = ServingLoop(WholeStep(), _scfg(), reqs,
-                       cfg=ServingConfig(refill=False))
-    _assert_same_results(sweeps["tree"], loop.run())
+    assert ServingLoop(backend, _scfg(), reqs, cfg=ServingConfig(
+        est_step_cost=3.5))._est_step == 3.5
+    loop = ServingLoop(backend, _scfg(), reqs)
+    cfg = loop.cfg
+    assert loop._est_step == (cfg.decode_iter_cost * backend.stream_budget()
+                              + cfg.score_cost + cfg.embed_cost)
+
+
+# ---------------------------------------------------------------------------
+# The reference's stub-backend cases, against the port's event mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("refill", [False, True])
+def test_degenerate_trace_matches_batch_sweep_stub(refill):
+    base = run_search_many(StubBackend(), STUB_SCFG, STUB_PROMPTS)
+    loop = ServingLoop(StubBackend(), STUB_SCFG,
+                       [Request(prompt=p) for p in STUB_PROMPTS],
+                       cfg=ServingConfig(refill=refill))
+    _assert_results_identical(base, loop.run())
+    rep = loop.slo.report()
+    assert rep["n_finished"] == len(STUB_PROMPTS)
+    assert rep["deadline_hit_rate"] is None
+    assert 0 < rep["p50_tta"] <= rep["p99_tta"] <= rep["max_tta"]
+    jloop = JaxServingLoop(RefStubBackend(), JaxSearchConfig(
+        method="beam", width=4, max_steps=3),
+        [JaxRequest(prompt=p) for p in STUB_PROMPTS],
+        cfg=JaxServingConfig(refill=refill))
+    jloop.run()
+    assert rep == jloop.slo.report() and loop.clock == jloop.clock
+
+
+@settings(max_examples=10, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(st.lists(st.tuples(st.integers(0, 50),        # arrival time
+                          st.integers(0, 2),         # priority class
+                          st.integers(0, 1)),        # has a deadline?
+                min_size=2, max_size=6),
+       st.integers(1, 4),                            # max_live
+       st.integers(0, 1))                            # first_finish
+def test_timed_workload_scheduling_invariance_stub(specs, max_live,
+                                                   first_finish):
+    """Refill's event mode on a whole-step backend: every request
+    finishes, and without First-Finish each equals its solo run."""
+    prompts = [[100 + i, i % 7] for i in range(len(specs))]
+    reqs = [Request(prompt=p, arrival=float(a), priority=prio,
+                    deadline=float(a + 40) if dl else None)
+            for p, (a, prio, dl) in zip(prompts, specs)]
+    loop = ServingLoop(StubBackend(), STUB_SCFG, reqs, max_live=max_live,
+                       cfg=ServingConfig(refill=True,
+                                         first_finish=bool(first_finish)))
+    out = loop.run()
+    assert len(out) == len(reqs)
+    for i, req in enumerate(reqs):
+        assert i in loop.slo.finished
+        assert loop.slo.finished[i] >= req.arrival
+        assert loop.slo.admitted[i] >= req.arrival
+        assert out[i].completed
+    if not first_finish:
+        _assert_results_identical(_stub_serial(prompts), out)
+
+
+def test_first_finish_halts_at_first_answer_stub():
+    reqs = [Request(prompt=p) for p in STUB_PROMPTS]
+    full = ServingLoop(StubBackend(), STUB_SCFG, reqs,
+                       cfg=ServingConfig(refill=True)).run()
+    ff_loop = ServingLoop(StubBackend(), STUB_SCFG, reqs,
+                          cfg=ServingConfig(refill=True, first_finish=True))
+    ff = ff_loop.run()
+    for a, b in zip(ff, full):
+        assert a.steps <= b.steps
+        assert len(a.completed) >= 1
+    assert sum(a.steps for a in ff) < sum(b.steps for b in full)
