@@ -72,6 +72,20 @@ def build_models(train_steps: int, batch: int, *, device=None,
     return task, (lm, lm_params), (prm, prm_params), (emb, emb_params), info
 
 
+class CensusBackend(LMBackend):
+    """``LMBackend`` that takes its problem's page census (physical and
+    logical pages) after each closed search step."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.census = []
+
+    def on_step(self, tree, live):
+        super().on_step(tree, live)
+        self.census.append(self.engine.alloc.ns_page_stats(
+            tree.node(0).payload["ns"]))
+
+
 def search_problems(task, lm_pack, prm_pack, emb_pack, *, method: str,
                     width: int, n_problems: int, lambda_b: float = 2.0):
     lm, lm_params = lm_pack
@@ -85,7 +99,7 @@ def search_problems(task, lm_pack, prm_pack, emb_pack, *, method: str,
         engine = PagedEngine(lm, lm_params, EngineConfig(
             n_pages=2048, page_size=8, max_batch=max(width * 2, 32),
             max_seq_len=200), device=dev)
-        backend = LMBackend(
+        backend = CensusBackend(
             engine, prm_pack[0], prm_pack[1], emb_pack[0], emb_pack[1],
             BackendConfig(step_token=NEWLINE, eos_token=EOS,
                           max_step_tokens=12, max_depth=8),
@@ -97,11 +111,11 @@ def search_problems(task, lm_pack, prm_pack, emb_pack, *, method: str,
                                           cluster_threshold=0.15))
         res = run_search(backend, scfg, tree=tree)
         correct += int(res.answer == ans)
-        if backend.kv_trace:
+        if backend.census:
             phys_pages.append(np.mean(
-                [t["physical_pages"] for t in backend.kv_trace]))
+                [t["physical_pages"] for t in backend.census]))
             logi_pages.append(np.mean(
-                [t["logical_pages"] for t in backend.kv_trace]))
+                [t["logical_pages"] for t in backend.census]))
     return {
         "method": method,
         "accuracy": correct / n_problems,

@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from .clustering import cluster_embeddings
 from .ilp import SelectionProblem, SelectionResult, solve
 from .rebase import rebase_reweight, rebase_weights
@@ -54,6 +55,7 @@ class ETSStep:
     solver_result: SelectionResult
 
 
+@tracing.span("select")
 def ets_prune(tree: SearchTree, candidates: Sequence[int],
               rewards: Sequence[float], n_total: int, cfg: ETSConfig,
               embeddings: Optional[np.ndarray] = None) -> ETSStep:
@@ -62,6 +64,10 @@ def ets_prune(tree: SearchTree, candidates: Sequence[int],
     n_total: continuation budget N for the next expansion.
     embeddings: (L, D) last-step embeddings (required if use_clustering).
     """
+    if tracing.on:
+        root = tree.node(0).payload
+        if isinstance(root, dict) and "ns" in root:
+            tracing.annotate(ns=root["ns"])
     L = len(candidates)
     W = rebase_weights(rewards, n_total, cfg.rebase_temperature)
 

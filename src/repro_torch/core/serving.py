@@ -55,6 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from .. import tracing
 from .controllers import (AdaptiveConfig, SearchConfig, SearchResult,
                           SweepScheduler, _embed_multi, _expand_multi,
                           _score_multi)
@@ -357,6 +358,7 @@ class ServingLoop(SweepScheduler):
             self.slo.note_finish(idx, self.clock)
 
     # -- ticks ---------------------------------------------------------
+    @tracing.span("tick")
     def tick(self) -> bool:
         """Advance the server by one scheduling quantum.  Returns True
         while any request is pending, queued, or in flight."""

@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .layers import _ContiguousGrad, dense_init, matmul, on_mesh, per_rank
 
 # Set by the launch layer (the dry run, or a serving engine on a mesh):
@@ -240,11 +241,21 @@ def _apply_group(p, x, gates, idx, cfg, C: int):
     S, d = x.shape
     src_token, slot_valid, slot, keep, src_replica = dispatch_plan(
         idx, E, C)
+    _count_drops(cfg, keep)
     xe = _Dispatch.apply(x, src_token, slot_valid, slot, keep, k)
     ye = _expert_ffn(p, xe.reshape(E, C, d), cfg.act)    # (E, C, d)
     ys = _Combine.apply(ye.reshape(E * C, d), slot, keep, src_replica,
                         slot_valid)                      # (Lg, d)
     return (ys.reshape(S, k, d) * gates[..., None].to(ye.dtype)).sum(dim=1)
+
+
+def _count_drops(cfg, keep: torch.Tensor) -> None:
+    """Traced: the routed replicas and those capacity dropped, per
+    model config (``moe.routed/<name>``, ``moe.dropped/<name>``); the
+    drops are summed on the device."""
+    if tracing.on:
+        tracing.count(f"moe.routed/{cfg.name}", keep.numel())
+        tracing.count(f"moe.dropped/{cfg.name}", (~keep).sum())
 
 
 def _capacity(cfg, n_replicas: int, capacity: int) -> int:
@@ -380,6 +391,7 @@ def moe_apply_expert_parallel(p, x, cfg, *, capacity: int = 0):
 
         src_token, slot_valid, slot, keep, src_replica = dispatch_plan(
             idx, E, C)
+        _count_drops(cfg, keep)
         xe = _Dispatch.apply(xl, src_token, slot_valid, slot, keep, k)
         xe = xe.reshape(E, C, d)
         # tokens -> owning expert rank (split E, concat capacity)

@@ -75,6 +75,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..kernels import ops
 from ..kvcache import KVPool, PageAllocator, StatePool
@@ -206,6 +207,9 @@ class PagedEngine:
         self.swapped_in_pages = 0
         self.n_swap_outs = 0
         self.n_swap_ins = 0
+        # pages copied on write when a decode step appends to a shared
+        # last page
+        self.n_cow_pages = 0
         # ns -> [(stale page ids, PendingGather)]: the spill buffer a
         # demoted problem's pages wait in until swap-in.  A list because
         # a partial swap_out may spill one namespace in several waves.
@@ -226,6 +230,7 @@ class PagedEngine:
         self.unique_pages_streamed_by_ns: Dict[int, int] = {}
         self.logical_pages_streamed_by_ns: Dict[int, int] = {}
         self.logits_trace: List[np.ndarray] = []   # if ecfg.trace_logits
+        tracing.watch(self)
 
     def _put(self, arr) -> torch.Tensor:
         """A host-built operand on the engine's device."""
@@ -696,6 +701,7 @@ class PagedEngine:
         self.swapped_in_pages = 0
         self.n_swap_outs = 0
         self.n_swap_ins = 0
+        self.n_cow_pages = 0
         self.unique_pages_streamed = 0
         self.logical_pages_streamed = 0
         self.unique_pages_streamed_by_ns.clear()
@@ -796,6 +802,8 @@ class DecodeStream:
         self._budget: Dict[int, int] = {}
         self._key: Dict[int, np.ndarray] = {}
         self.out: Dict[int, List[int]] = {}
+        # traced: ns -> [first row's seat stamp, rows seated and unfinished]
+        self._ns_rows: Dict[int, list] = {}
 
     @property
     def live(self) -> List[int]:
@@ -826,6 +834,25 @@ class DecodeStream:
             self._budget[i] = int(n_tokens)
             self._key[i] = k
             self.out[i] = []
+        if tracing.on:
+            t = tracing.now()
+            for i in ids:
+                ns = self.engine.alloc.seqs[i].ns
+                self._ns_rows.setdefault(ns, [t, 0])[1] += 1
+
+    def _rows_finished(self, seq_ids: Sequence[int]) -> None:
+        """Traced: close a problem's ``step.rows`` span when its last
+        seated row finishes."""
+        t = tracing.now()
+        for i in seq_ids:
+            ns = self.engine.alloc.seqs[i].ns
+            o = self._ns_rows.get(ns)
+            if o is None:           # seated before tracing was on
+                continue
+            o[1] -= 1
+            if o[1] == 0:
+                del self._ns_rows[ns]
+                tracing.record("step.rows", o[0], t, ns=ns)
 
     def _free_slot(self, i: int) -> None:
         j = self._slot_of.pop(i)
@@ -833,12 +860,14 @@ class DecodeStream:
         self._budget.pop(i, None)
         self._key.pop(i, None)
 
+    @tracing.span("decode")
     def step(self) -> List[int]:
         """Run ONE lock-step iteration over the occupied slots.
 
         Returns the sequences that stopped this iteration (stop token,
         per-row budget, or max_seq_len) — their slots are free for
-        ``add()`` before the next iteration.
+        ``add()`` before the next iteration.  Traced, its phases are the
+        ``decode`` span's laps, in order.
         """
         eng = self.engine
         ecfg = eng.ecfg
@@ -846,12 +875,18 @@ class DecodeStream:
         live = self.live
         if not live:
             return []
+        tr = tracing.on
+        if tr:
+            tracing.annotate(rows=len(live))
         eng.n_decode_steps += 1
         # reserve one slot per live sequence (may CoW)
         copy_ops = []
         for i in live:
             copy_ops += eng.alloc.append_tokens(i, 1)
         eng.pool.copy_pages(copy_ops)
+        eng.n_cow_pages += len(copy_ops)
+        if tr:
+            tracing.lap("decode.alloc")
 
         B = ecfg.max_batch
         T = eng.max_pages_per_seq
@@ -875,23 +910,35 @@ class DecodeStream:
             slots[j] = pos % ecfg.page_size
             act[j] = True
             rows[j] = i
+        if tr:
+            tracing.lap("decode.rows")
 
-        lens_t = eng._put_rows(lens)
         if tree_mode:
             meta = eng.alloc.tree_metadata(rows, pad_page=eng.dump_page)
+            if tr:
+                tracing.lap("decode.meta")
             eng._count_streamed_pages(live, meta.n_unique, meta.n_logical)
+        else:
+            n_logical = sum(len(eng.alloc.seqs[i].block_table) for i in live)
+            eng._count_streamed_pages(live, n_logical, n_logical)
+        if tr:
+            tracing.lap("decode.count")
+        lens_t = eng._put_rows(lens)
+        if tree_mode:
             attend = eng._tree_attend(eng._put_repl(meta.page_list),
                                       eng._put_repl(meta.page_mask),
                                       eng._put_repl(meta.page_lens),
                                       meta.n_unique)
         else:
-            n_logical = sum(len(eng.alloc.seqs[i].block_table) for i in live)
-            eng._count_streamed_pages(live, n_logical, n_logical)
             attend = eng._paged_attend(eng._put_repl(bt), lens_t)
-        logits = eng._decode_step(eng._put_rows(tok), lens_t,
-                                  eng._put_rows(pages),
-                                  eng._put_rows(slots), eng._put_rows(act),
-                                  eng._state_rows(rows, B), attend)
+        operands = (eng._put_rows(tok), lens_t, eng._put_rows(pages),
+                    eng._put_rows(slots), eng._put_rows(act),
+                    eng._state_rows(rows, B))
+        if tr:
+            tracing.lap("decode.put")
+        logits = eng._decode_step(*operands, attend)
+        if tr:
+            tracing.lap("decode.forward")
         if ecfg.trace_logits:
             eng.logits_trace.append(logits.float().cpu().numpy())
         # tokens of the occupied rows, on the device (B tokens come back,
@@ -908,6 +955,8 @@ class DecodeStream:
             if len(occ) < B:
                 logits = logits[eng._put(np.asarray(occ, np.int64))]
             new = sample_tokens_rowwise(sub, logits, self.temperature)
+        if tr:
+            tracing.lap("decode.sample")
         finished: List[int] = []
         for t, j in zip(new, occ):
             i = rows[j]
@@ -919,6 +968,10 @@ class DecodeStream:
             if t in self.stop or len(eng.tokens[i]) >= ecfg.max_seq_len \
                     or self._budget[i] <= 0:
                 finished.append(i)
+        if tr:
+            self._rows_finished(finished)
         for i in finished:
             self._free_slot(i)
+        if tr:
+            tracing.lap("decode.book")
         return finished

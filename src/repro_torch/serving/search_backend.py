@@ -17,7 +17,7 @@ right-padded into power-of-two (rows, length) buckets with padded
 positions at -1, which the attention mask excludes.
 
 Problem namespaces: every problem keeps its own engine sequence
-namespace, sampling-key chain and KV/IO trace, so a branch's token
+namespace, sampling-key chain and IO sums, so a branch's token
 stream depends only on its own problem.  The chain is the reference's:
 it starts at ``key(seed)``, each expand call splits it once (``chain,
 step_key = fold_in(chain, 0), fold_in(chain, 1)``) and branch i decodes
@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.tree import SearchTree
 from ..device import resolve_device
 from .engine import PagedEngine
@@ -116,14 +117,16 @@ class LMBackend:
         self.answer_fn = answer_fn
         self.seed = seed
         # per-problem state, keyed by namespace: the sampling-key chain,
-        # live engine sequences, KV/IO trace, and the last sampled
-        # cumulative IO counters (the trace stores deltas)
+        # live engine sequences, the cumulative IO counters at the last
+        # closed step, and the IO the closed steps streamed
         self._keys: Dict[Any, np.ndarray] = {}
         self._ns_seqs: Dict[Any, set] = {}
-        self.kv_trace_by_problem: Dict[Any, List[Dict[str, int]]] = {}
         self._last_io_ns: Dict[Any, Tuple[int, int]] = {}
+        # ns (None: every problem) -> [unique, logical pages, steps]
+        self._io: Dict[Any, List[int]] = {None: [0, 0, 0]}
         self.gen_tokens_by_problem: Dict[Any, int] = {}
-        self.kv_trace: List[Dict[str, int]] = []
+        # traced: ns -> (stamp its open step began, steps closed)
+        self._step_open: Dict[Any, Tuple[int, int]] = {}
         # roots prefilled ahead of their search (start_many sweeps):
         # on_step must not free them before their search branches them
         self._protected: set = set()
@@ -138,17 +141,22 @@ class LMBackend:
     def start(self, prompt_tokens: Sequence[int]) -> SearchTree:
         return self.start_many([prompt_tokens])[0]
 
+    @tracing.span("prefill")
     def start_many(self, prompts: Sequence[Sequence[int]]
                    ) -> List[SearchTree]:
         """Prefill a whole problem sweep in one batched flash stream;
-        each prompt opens its own problem namespace."""
+        each prompt opens its own problem namespace.  Traced, each
+        problem's first ``step`` span opens here."""
         sids = self.engine.prefill_many(prompts)
         self._protected.update(sids)
         trees = []
+        t = tracing.now() if tracing.on else None
         for p, sid in zip(prompts, sids):
             ns = self._ns_of(sid)
             self._keys[ns] = prng_key(self.seed)
             self._ns_seqs.setdefault(ns, set()).add(sid)
+            if t is not None:
+                self._step_open[ns] = (t, 0)
             trees.append(SearchTree(
                 root_tokens=len(p),
                 root_payload={"seq_id": sid, "tokens": [], "ns": ns}))
@@ -267,6 +275,7 @@ class LMBackend:
                    nodes: Sequence[int]) -> List[float]:
         return self.score_multi([(tree, nodes)])[0]
 
+    @tracing.span("prm")
     @torch.no_grad()
     def score_multi(self, reqs: Sequence[Tuple[SearchTree, Sequence[int]]]
                     ) -> List[List[float]]:
@@ -278,6 +287,10 @@ class LMBackend:
         if not seqs:
             return [[] for _ in reqs]
         toks, pos, lengths = _pad_bucket(seqs)
+        if tracing.on:
+            tracing.annotate(rows=toks.shape[0], len=toks.shape[1])
+            tracing.count("prm.slots", toks.size)
+            tracing.count("prm.valid", sum(len(s) for s in seqs))
         r = self.prm_model.reward(self.prm_params,
                                   {"tokens": self._put(toks),
                                    "positions": self._put(pos)})
@@ -298,6 +311,7 @@ class LMBackend:
                    nodes: Sequence[int]) -> np.ndarray:
         return self.embed_multi([(tree, nodes)])[0]
 
+    @tracing.span("embed")
     @torch.no_grad()
     def embed_multi(self, reqs: Sequence[Tuple[SearchTree, Sequence[int]]]
                     ) -> List[np.ndarray]:
@@ -328,11 +342,13 @@ class LMBackend:
 
     # -- lifecycle -----------------------------------------------------
     def on_step(self, tree: SearchTree, live: Sequence[int]) -> None:
-        """Free engine sequences of pruned/finished leaves; sample stats.
+        """Free engine sequences of pruned/finished leaves and book the
+        step's attention IO.
 
         Only sweeps the owning problem's namespace: live leaves keep
         their sequences, pending start_many roots stay protected until
         branched, and other problems sharing the engine are untouched.
+        Traced, the problem's ``step`` span closes here.
         """
         ns = tree.node(0).payload["ns"]
         keep = set(self._protected)
@@ -345,26 +361,29 @@ class LMBackend:
             if sid in self.engine.alloc.seqs:
                 self.engine.free(sid)
             pool.discard(sid)
-        stats = self._ns_stats(ns)
-        # the engine's cumulative per-problem IO counters -> per-step
-        # deltas (what this step's decode streamed for this problem)
+        # the engine's cumulative per-problem IO counters -> this step's
+        # deltas (what its decode streamed for this problem)
         uniq = self.engine.unique_pages_streamed_by_ns.get(ns, 0)
         logical = self.engine.logical_pages_streamed_by_ns.get(ns, 0)
         last = self._last_io_ns.get(ns, (0, 0))
-        stats["unique_pages_streamed"] = uniq - last[0]
-        stats["logical_pages_streamed"] = logical - last[1]
         self._last_io_ns[ns] = (uniq, logical)
-        self.kv_trace.append(stats)
-        self.kv_trace_by_problem.setdefault(ns, []).append(stats)
+        for key in (None, ns):
+            io = self._io.setdefault(key, [0, 0, 0])
+            io[0] += uniq - last[0]
+            io[1] += logical - last[1]
+            io[2] += 1
+        if tracing.on:
+            t = tracing.now()
+            t0, k = self._step_open.get(ns, (None, 0))
+            if t0 is not None:
+                tracing.record("step", t0, t, ns=ns, step=k + 1)
+            self._step_open[ns] = (t, k + 1)
 
     def io_summary(self, ns=None) -> Dict[str, float]:
-        """Measured attention-IO over the recorded steps: pages streamed
+        """Measured attention-IO over the closed steps: pages streamed
         per decode step and the realized sharing ratio."""
-        trace = self.kv_trace if ns is None \
-            else self.kv_trace_by_problem.get(ns, [])
-        uniq = sum(t.get("unique_pages_streamed", 0) for t in trace)
-        logical = sum(t.get("logical_pages_streamed", 0) for t in trace)
-        steps = max(len(trace), 1)
+        uniq, logical, steps = self._io.get(ns, (0, 0, 0))
+        steps = max(steps, 1)
         return {
             "unique_pages_streamed": uniq,
             "logical_pages_streamed": logical,
@@ -470,8 +489,8 @@ class LMBackend:
     def finish_problem(self, tree: SearchTree) -> None:
         """Retire one problem: free whatever engine sequences its final
         step left behind and drop its per-problem key/sequence
-        bookkeeping and the engine's per-ns IO counters.  The KV/IO
-        traces are kept."""
+        bookkeeping and the engine's per-ns IO counters.  Its IO sums
+        are kept."""
         pl = tree.node(0).payload
         ns = pl.get("ns") if isinstance(pl, dict) else None
         if ns is None:        # not a tree this backend started
@@ -482,5 +501,6 @@ class LMBackend:
                 self.engine.free(sid)
         self._keys.pop(ns, None)
         self._last_io_ns.pop(ns, None)
+        self._step_open.pop(ns, None)
         self.engine.unique_pages_streamed_by_ns.pop(ns, None)
         self.engine.logical_pages_streamed_by_ns.pop(ns, None)

@@ -44,7 +44,7 @@ SUBMODULES = [
     "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
     "repro_torch.analysis", "repro_torch.analysis.roofline",
     "repro_torch.analysis.report",
-    "repro_torch.eval", "repro_torch.eval.harness",
+    "repro_torch.eval", "repro_torch.eval.harness", "repro_torch.tracing",
 ]
 # files outside the package that import only the port
 SCRIPTS = ["examples/torch_train_and_search.py"]
