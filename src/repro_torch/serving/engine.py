@@ -34,7 +34,12 @@ Two attention modes for decode (``EngineConfig.attention``):
 
 Attention goes through ``kernels/ops.py``: on a CUDA device the
 hand-written kernels run, on the CPU their plain PyTorch versions.
-Decode runs in float32 and the pool is float32, as in the reference.
+Decode runs at the configuration's compute dtype, as prefill does: a
+bfloat16 configuration's projections, FFNs and head take bf16 operands
+(fp32 accumulation), where the reference decodes in float32; a float32
+configuration decodes as the reference does.  The pool is float32
+either way: queries are cast to it at the attention seam and the
+attention's output back to the queries' dtype.
 
 Prompts whose context is longer than ``EngineConfig.prefill_chunk_tokens``
 prefill in page-streamed segments (``_prefill_streamed``): peak
@@ -394,12 +399,18 @@ class PagedEngine:
         ``attend(kv_layer, q, pool_k, pool_v) -> (B, H, hd)`` is the only
         thing the two attention modes disagree on.
         """
-        x = self.params["embed"].float()[tokens][:, None]   # (B,1,d)
+        # the rows first, then their cast: no copy of the whole table
+        x = self.params["embed"][tokens].to(self.model.compute_dtype)
+        x = x[:, None]                                      # (B,1,d)
         ctx = DecodeCtx(lengths=lengths, pages=pages, slots=slots,
                         attend=attend, state_rows=srows)
         for rt in self.runtimes:
             x = rt.decode_step(self.params, x, ctx, self.pool.k, self.pool.v,
                                self._state_in())
+        if tracing.on:
+            # the dtype the stream ends in: the compute dtype, or float32
+            # where float32 params promote it
+            tracing.annotate(dtype=str(x.dtype).removeprefix("torch."))
         logits = self.model.logits(self.params, x[:, 0])
         return torch.where(active[:, None], logits, 0.0)
 

@@ -75,7 +75,8 @@ def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
                        ffn):
     """One attention layer of a lock-step decode: project/rope the new
     token, write its K/V at the reserved pool slot (in place), attend
-    via ``ctx.attend``."""
+    via ``ctx.attend``.  Only the attention runs in the pool's dtype; its
+    output returns to q's (the projections'), as in prefill."""
     B = x.shape[0]
     h = rms_norm(blk["ln1"], x, cfg.norm_eps)
     ap = blk["attn"]
@@ -93,7 +94,9 @@ def _attn_decode_layer(cfg, blk, x, ctx: DecodeCtx, kv_l, pool_k, pool_v,
     k = apply_rope(k, ang)
     pool_k[kv_l, ctx.pages, ctx.slots] = k[:, 0].to(pool_k.dtype)
     pool_v[kv_l, ctx.pages, ctx.slots] = v[:, 0].to(pool_v.dtype)
-    y = ctx.attend(kv_l, q[:, 0].contiguous(), pool_k, pool_v)
+    # the kernels take q in the pool's dtype; wo takes q's, as in prefill
+    y = ctx.attend(kv_l, q[:, 0].to(pool_k.dtype).contiguous(), pool_k,
+                   pool_v).to(q.dtype)
     x = x + matmul(y.reshape(B, 1, -1), ap["wo"])
     h = rms_norm(blk["ln2"], x, cfg.norm_eps)
     return x + ffn(blk, h)

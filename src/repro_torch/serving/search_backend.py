@@ -115,6 +115,14 @@ class LMBackend:
         self.embed_params = embed_model.cast_params(embed_params)
         self.bcfg = bcfg
         self.answer_fn = answer_fn
+        if self.device.type == "cuda":
+            # The PRM's transients at a long bucket (128 x 2048: 7 GiB
+            # score tiles, 9 GiB MLP states) dwarf decode's.  In fixed
+            # segments the allocator splits the cached ones under the next
+            # call until a tile no longer fits; expandable segments (set
+            # for the whole process) grow one mapping instead.
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:True")
         self.seed = seed
         # per-problem state, keyed by namespace: the sampling-key chain,
         # live engine sequences, the cumulative IO counters at the last

@@ -1,7 +1,8 @@
 """The port's tracer (``repro_torch.tracing``): off it records nothing and
-changes nothing; on, its spans nest as the serving loop runs, and its
-counters equal what the program computes (the PRM's bucket, the MoE's
-dispatch plan, the decode step's copy-on-write pages)."""
+changes nothing; on, its spans nest as the serving loop runs, the
+``decode`` span names its stream's dtype, and its counters equal what
+the program computes (the PRM's bucket, the MoE's dispatch plan, the
+decode step's copy-on-write pages)."""
 import dataclasses
 
 import numpy as np
@@ -205,6 +206,29 @@ def test_moe_counters_equal_the_dispatch_plan(capacity_factor, drops):
     assert counters["moe.routed/tiny-moe"] == keep.numel()
     assert counters["moe.dropped/tiny-moe"] == dropped
     assert (dropped > 0) == drops
+
+
+@pytest.mark.parametrize("dtype,cast,reads", [
+    pytest.param("float32", True, "float32", id="float32"),
+    pytest.param("bfloat16", True, "bfloat16", id="bfloat16"),
+    pytest.param("bfloat16", False, "float32",
+                 id="bfloat16-float32-params")])
+def test_decode_span_names_the_stream_dtype(models, dtype, cast, reads):
+    """Each ``decode`` span carries the dtype its stream ends in: the
+    configuration's on params cast to it, float32 where float32 params
+    promote a bfloat16 configuration's stream."""
+    lm, params = models[0]
+    lm = build_model(dataclasses.replace(lm.cfg, dtype=dtype), device="cpu")
+    eng = PagedEngine(lm, lm.cast_params(params) if cast else params,
+                      EngineConfig(
+        n_pages=64, page_size=8, max_batch=4, max_seq_len=64,
+        attention="tree"), device="cpu")
+    kids = eng.branch(eng.prefill(PROMPTS[0]), 2)
+    tracing.enable()
+    eng.decode(kids, 3, key=0)
+    spans = [s for s in tracing.snapshot()["spans"] if s.name == "decode"]
+    assert len(spans) == 3
+    assert {s.attrs["dtype"] for s in spans} == {reads}
 
 
 def test_cow_pages_equal_the_copy_ops(models):
