@@ -724,7 +724,10 @@ class Recorder:
     KV layer 0 (one host sync per decode step, not one per layer):
     ``layer0_ptr`` names the running engine's pool.  Each engine built
     while the recorder is entered sets it; a path that runs an engine
-    built before sets it by hand."""
+    built before sets it by hand.  A call made while a CUDA graph is
+    being captured runs nothing and is not sized (sizing syncs): the
+    decode forward's calls are seen at each graph key's eager first
+    run."""
 
     def __init__(self, ops):
         self.ops = ops
@@ -737,11 +740,15 @@ class Recorder:
         orig = self.orig[name]
 
         def wrapper(*args, **kw):
-            if not decode or args[1].data_ptr() == self.layer0_ptr:
+            import torch
+            if (not decode or args[1].data_ptr() == self.layer0_ptr) \
+                    and not (args[0].is_cuda and
+                             torch.cuda.is_current_stream_capturing()):
                 size = size_fn(args)
                 if size > self.best.get(name, (-1,))[0]:
-                    self.best[name] = (size, [a.clone() for a in args],
-                                       dict(kw))
+                    self.best[name] = (size, [a.clone() for a in args], {
+                        k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in kw.items()})
             return orig(*args, **kw)
         return wrapper
 

@@ -119,18 +119,23 @@ static inline cudaError_t smem_optin(size_t* cap) {
 // non-empty split.  Partials: part_acc (n_splits, B, H, hd) and part_ml
 // (n_splits, B, H, 2) in fp32.  A split is non-empty for row b where
 // part_hit (n_splits, B) is non-zero, or, when part_hit is null, where
-// its l is positive.  Lane t holds output dims t, t + 32, ... (hd <= 256).
+// its l is positive.  With n_live non-null only the first
+// ceil(*n_live / pps) splits are merged (the split pass's CTAs past the
+// device-side live count wrote nothing).  Lane t holds output dims t,
+// t + 32, ... (hd <= 256).
 #define COMBINE_WARPS 8
 
 template <typename T>
 __global__ void __launch_bounds__(COMBINE_WARPS * 32) split_combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const unsigned char* __restrict__ part_hit, T* __restrict__ out, int B,
-    int H, int hd, int n_splits) {
+    int H, int hd, int n_splits, const int* __restrict__ n_live, int pps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pair = blockIdx.x * COMBINE_WARPS + warp;   // b * H + h
   if (pair >= B * H) return;
   const int b = pair / H;
+  if (n_live != nullptr)
+    n_splits = min(n_splits, (max(*n_live, 0) + pps - 1) / pps);
   float m = NEG_INF_F, l = 0.f, a[8];
 #pragma unroll
   for (int t = 0; t < 8; ++t) a[t] = 0.f;
@@ -169,11 +174,14 @@ template <typename T>
 static cudaError_t launch_combine(const void* part_acc, const void* part_ml,
                                   const void* part_hit, void* out, int B,
                                   int H, int hd, int n_splits,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream,
+                                  const void* n_live = nullptr,
+                                  int pps = 1) {
   split_combine_kernel<T><<<(B * H + COMBINE_WARPS - 1) / COMBINE_WARPS,
                             COMBINE_WARPS * 32, 0, stream>>>(
       (const float*)part_acc, (const float*)part_ml,
-      (const unsigned char*)part_hit, (T*)out, B, H, hd, n_splits);
+      (const unsigned char*)part_hit, (T*)out, B, H, hd, n_splits,
+      (const int*)n_live, pps);
   return cudaGetLastError();
 }
 

@@ -52,6 +52,16 @@
 //     splits in split order with log-sum-exp rescaling, no atomics, so a
 //     result repeats bit for bit from run to run; writes
 //     acc / max(l, 1e-30).  A leaf with no hit split writes zeros.
+//  4. The live count.  The host passes n_entries, the leading page_list
+//     entries the grid covers, and optionally a device pointer to an
+//     int32 count of the live entries among them.  With the pointer, the
+//     grid is sized for all n_entries (one launch shape serves every
+//     count, as a CUDA graph replay needs); a split CTA whose first entry
+//     is at or past the count exits before it reads q or any page, and
+//     the combine merges only the first ceil(count / pages_per_split)
+//     splits.  The live splits hold the entries a launch trimmed to the
+//     count on the host would give them, in the same order, so the two
+//     launches agree bit for bit.
 //
 // Page order decides the speed, not the result: the allocator emits
 // pages sorted by (first row, position), so a split holds a few
@@ -72,10 +82,13 @@ __global__ void __launch_bounds__(TREE_WARPS * 32) tree_split_kernel(
     float* __restrict__ part_acc,          // (n_splits, B, H, hd)
     float* __restrict__ part_ml,           // (n_splits, B, H, 2)
     unsigned char* __restrict__ part_hit,  // (n_splits, B)
+    const int* __restrict__ n_live,        // (1,) live count, or null
     int B, int n_entries, int S, int K, int G, int hd, int pps, int lb,
     float scale) {
   constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
   const int split = blockIdx.x, kh = blockIdx.y, b0 = blockIdx.z * lb;
+  if (n_live != nullptr) n_entries = min(n_entries, max(*n_live, 0));
+  if (split * pps >= n_entries) return;     // past the live count
   const int nb = min(lb, B - b0);
   const int H = K * G, pairs = nb * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -325,9 +338,9 @@ template <typename T>
 static int launch(const void* q, const void* k, const void* v,
                   const void* page_list, const void* page_mask,
                   const void* page_lens, void* out, void* part_acc,
-                  void* part_ml, void* part_hit, int B, int n_entries, int S,
-                  int K, int G, int hd, int pps, float scale,
-                  cudaStream_t stream) {
+                  void* part_ml, void* part_hit, const void* n_live, int B,
+                  int n_entries, int S, int K, int G, int hd, int pps,
+                  float scale, cudaStream_t stream) {
   const int n_splits = (n_entries + pps - 1) / pps;
   if (n_splits > 0) {
     size_t optin = 0;                   // the card's per-block cap
@@ -347,13 +360,13 @@ static int launch(const void* q, const void* k, const void* v,
     kern<<<grid, TREE_WARPS * 32, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int*)page_list,
         (const signed char*)page_mask, (const int*)page_lens,
-        (float*)part_acc, (float*)part_ml, (unsigned char*)part_hit, B,
-        n_entries, S, K, G, hd, pps, lb, scale);
+        (float*)part_acc, (float*)part_ml, (unsigned char*)part_hit,
+        (const int*)n_live, B, n_entries, S, K, G, hd, pps, lb, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return (int)launch_combine<T>(part_acc, part_ml, part_hit, out, B, K * G,
-                                hd, n_splits, stream);
+                                hd, n_splits, stream, n_live, pps);
 }
 
 // C entry point (loaded with ctypes).  The Python wrapper checks shapes,
@@ -362,14 +375,15 @@ static int launch(const void* q, const void* k, const void* v,
 // hd) float32, part_ml (n_splits, B, H, 2) float32, part_hit (n_splits,
 // B) uint8, n_splits = ceil(n_entries / pages_per_split).  n_entries <=
 // N is the count of leading page_list entries the grid covers (every
-// entry past it must be a dump entry).  Returns the first failing
-// launch's cudaError_t (0 = success).
+// entry past it must be a dump entry); n_live, when not null, points at
+// the int32 count of live entries among them on the device (design 4).
+// Returns the first failing launch's cudaError_t (0 = success).
 extern "C" int tree_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_list, const void* page_mask, const void* page_lens,
-    void* out, void* part_acc, void* part_ml, void* part_hit, int B,
-    int n_entries, int S, int K, int G, int hd, int pages_per_split,
-    float scale, int dtype, void* stream) {
+    void* out, void* part_acc, void* part_ml, void* part_hit,
+    const void* n_live, int B, int n_entries, int S, int K, int G, int hd,
+    int pages_per_split, float scale, int dtype, void* stream) {
   if (B == 0) return 0;
   if (pages_per_split < 1 || hd % 8 || hd > 256)
     return (int)cudaErrorInvalidValue;
@@ -377,11 +391,11 @@ extern "C" int tree_attention_launch(
   if (dtype == DTYPE_BF16)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, page_list, page_mask,
                                  page_lens, out, part_acc, part_ml, part_hit,
-                                 B, n_entries, S, K, G, hd, pages_per_split,
-                                 scale, st);
+                                 n_live, B, n_entries, S, K, G, hd,
+                                 pages_per_split, scale, st);
   return launch<float>(q, k_pool, v_pool, page_list, page_mask, page_lens,
-                       out, part_acc, part_ml, part_hit, B, n_entries, S, K,
-                       G, hd, pages_per_split, scale, st);
+                       out, part_acc, part_ml, part_hit, n_live, B,
+                       n_entries, S, K, G, hd, pages_per_split, scale, st);
 }
 
 // Leaves per CTA the split pass would take for these shapes (the leaf

@@ -7,9 +7,11 @@ on ``torch.cuda.current_stream()``, allocates nothing itself (the
 wrapper allocates the output), and the wrapper raises if the launch
 reports an error.
 
-Every kernel keeps a plain launch counter (``Kernel.launches``), raised
-by one where its wrapper launches it and nowhere else, so a run can show
-that its main path went through the kernels.
+Every kernel keeps a plain launch counter (``Kernel.launches``) of its
+runs, so a run can show that its main path went through the kernels:
+raised by one where its wrapper launches it, and by each replay of a
+captured decode forward for every launch the capture recorded
+(``serving.engine.DecodeGraphs``; a capture itself runs nothing).
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def check_mesh_compat(mesh, *, use_kernel: bool) -> None:
 
 PAGED = Kernel("paged_attention", [_P] * 8 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/paged_attention.py:116")
-TREE = Kernel("tree_attention", [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+TREE = Kernel("tree_attention", [_P] * 11 + [_I] * 7 + [_F, _I, _P],
               "src/repro/kernels/tree_attention.py:217")
 FLASH = Kernel("flash_prefill", [_P] * 4 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/flash_prefill.py:98")
@@ -208,16 +210,22 @@ TREE_PAGES_PER_SPLIT = 8
 
 def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
                    scale: float, pages_per_split: Optional[int] = None,
-                   n_live: Optional[int] = None) -> torch.Tensor:
+                   n_live=None) -> torch.Tensor:
     """q (B,H,hd); k/v_pool (P,S,K,hd); page_list (N,) int32; page_mask
     (N,B) int8; page_lens (N,) int32.  Returns (B,H,hd).
 
     ``pages_per_split`` is the split pass's page run per CTA (None =
-    ``TREE_PAGES_PER_SPLIT``).  ``n_live``, when the caller knows it on
-    the host, is the count of leading ``page_list`` entries that may be
-    live (every later entry must be a zero-length dump entry); the grid
-    then covers only those.  Neither changes the result.
+    ``TREE_PAGES_PER_SPLIT``).  ``n_live`` is the count of leading
+    ``page_list`` entries that may be live (every later entry must be a
+    zero-length dump entry): an int known on the host trims the grid to
+    them; a (1,) int32 tensor on q's device is read by the kernel, whose
+    grid then covers all N entries and whose CTAs past the count exit at
+    once (one launch shape for any count, as a CUDA graph replays).
+    Neither changes the result.
     """
+    on_device = isinstance(n_live, torch.Tensor)
+    if on_device:
+        _check("n_live", n_live, q.device, torch.int32, (1,))
     if _on_cpu(q):
         return tree_attention_ref(q, k_pool, v_pool, page_list, page_mask,
                                   page_lens, scale=scale)
@@ -242,7 +250,8 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     if pps < 1:
         raise ValueError(f"pages_per_split must be >= 1, got "
                          f"{pages_per_split}")
-    n_cover = N if n_live is None else max(0, min(int(n_live), N))
+    n_cover = N if n_live is None or on_device \
+        else max(0, min(int(n_live), N))
     pps = max(1, min(pps, n_cover))
     n_splits = -(-n_cover // pps)
     out = torch.empty_like(q)
@@ -256,8 +265,9 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     TREE.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_list.data_ptr(), page_mask.data_ptr(),
                 page_lens.data_ptr(), out.data_ptr(), base, base + acc_bytes,
-                base + acc_bytes + ml_bytes, B, n_cover, S, K, G, hd, pps,
-                float(scale), code, _stream(dev))
+                base + acc_bytes + ml_bytes,
+                n_live.data_ptr() if on_device else None, B, n_cover, S, K,
+                G, hd, pps, float(scale), code, _stream(dev))
     return out
 
 

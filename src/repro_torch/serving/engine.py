@@ -61,6 +61,13 @@ one-shot oracle, plain masked attention over the bucket
 (``make_mask`` + ``masked_attention``), with K/V written to the pool the
 same way.
 
+On a card without a mesh the decode forward (``_decode_step``, the
+embedding lookup to the masked logits) runs as one CUDA graph replay per
+iteration (:class:`DecodeGraphs`): captured once per shape key at its
+first use, it replays the very kernels the eager forward launches, on
+the same shapes, so the host no longer enqueues them one by one.  On
+the CPU, on a mesh and on the expert-parallel MoE path it runs eagerly.
+
 ``EngineConfig.mesh`` (a ``DeviceMesh`` from ``launch.mesh``) places the
 pool by the serve policy (``launch.sharding.pool_spec``: pages on
 ``model``), commits the per-row operands batch -> ``data``
@@ -86,6 +93,7 @@ from ..kernels import ops
 from ..kvcache import KVPool, PageAllocator, StatePool
 from ..kvcache.allocator import OutOfPages
 from ..kvcache.pool import PendingGather, PendingStateGather, pow2_bucket
+from ..models import moe as MOE
 from .runtimes import (DecodeCtx, PrefillCtx, build_runtimes,
                        collect_state_specs, total_kv_layers)
 from .sampler import as_keys, sample_tokens_rowwise, split, split_rows
@@ -235,6 +243,13 @@ class PagedEngine:
         self.unique_pages_streamed_by_ns: Dict[int, int] = {}
         self.logical_pages_streamed_by_ns: Dict[int, int] = {}
         self.logits_trace: List[np.ndarray] = []   # if ecfg.trace_logits
+        # decode iterations replayed from a captured graph, and the
+        # captures (one per shape key); both stay 0 where it runs eagerly
+        self.n_decode_graph_replays = 0
+        self.n_decode_graph_captures = 0
+        self.graphs: Optional[DecodeGraphs] = None
+        if self.device.type == "cuda" and self.mesh is None:
+            self.graphs = DecodeGraphs(self.device)
         tracing.watch(self)
 
     def _put(self, arr) -> torch.Tensor:
@@ -294,16 +309,20 @@ class PagedEngine:
         from torch.distributed.tensor import Replicate
         return self._commit(t, (Replicate(),) * self.mesh.ndim).to_local()
 
-    def _state_rows(self, seq_ids, n_rows: int) -> torch.Tensor:
-        """(n_rows,) state page per row on the device: the dump page
-        for padding rows and for attention-only stacks (whose steps get
-        an empty state dict, so the indices are then inert)."""
+    def _state_row_ids(self, seq_ids, n_rows: int) -> np.ndarray:
+        """(n_rows,) state page per row: the dump page for padding rows
+        and for attention-only stacks (whose steps get an empty state
+        dict, so the indices are then inert)."""
         dump = self.state.dump_page if self.state is not None else 0
         srows = np.full(n_rows, dump, np.int64)
         for r, sid in enumerate(seq_ids):
             if sid is not None and sid in self.state_of:
                 srows[r] = self.state_of[sid]
-        return self._put_rows(srows)
+        return srows
+
+    def _state_rows(self, seq_ids, n_rows: int) -> torch.Tensor:
+        """``_state_row_ids`` on the device."""
+        return self._put_rows(self._state_row_ids(seq_ids, n_rows))
 
     def _state_in(self) -> dict:
         return self.state.arrays if self.state is not None else {}
@@ -407,12 +426,17 @@ class PagedEngine:
         for rt in self.runtimes:
             x = rt.decode_step(self.params, x, ctx, self.pool.k, self.pool.v,
                                self._state_in())
-        if tracing.on:
-            # the dtype the stream ends in: the compute dtype, or float32
-            # where float32 params promote it
-            tracing.annotate(dtype=str(x.dtype).removeprefix("torch."))
         logits = self.model.logits(self.params, x[:, 0])
         return torch.where(active[:, None], logits, 0.0)
+
+    def _attend(self, attn: dict, lengths):
+        """The attention of one decode iteration from its device
+        operands: tree mode's ``page_list``, ``page_mask``,
+        ``page_lens`` and ``n_live``, paged mode's ``block_tables``."""
+        if self.ecfg.attention == "tree":
+            return self._tree_attend(attn["page_list"], attn["page_mask"],
+                                     attn["page_lens"], attn["n_live"])
+        return self._paged_attend(attn["block_tables"], lengths)
 
     def _paged_attend(self, block_tables, lengths):
         """Paged decode: each row attends over its own block table."""
@@ -426,8 +450,9 @@ class PagedEngine:
     def _tree_attend(self, page_list, page_mask, page_lens, n_live):
         """Tree decode: attention walks the unique live pages of the
         whole tree; a shared prefix page is streamed once per kv head.
-        ``n_live`` (the host-known count of live entries, which lead the
-        page list) trims the kernel's grid."""
+        ``n_live``, the count of live entries (they lead the page list),
+        trims the kernel's grid as a host int, or is read by the kernel
+        as a (1,) device tensor (``ops.tree_attention``)."""
         def attend(l, q, pk, pv):
             return ops.tree_attention(q, pk[l], pv[l], page_list, page_mask,
                                       page_lens, scale=self.scale,
@@ -717,6 +742,8 @@ class PagedEngine:
         self.logical_pages_streamed = 0
         self.unique_pages_streamed_by_ns.clear()
         self.logical_pages_streamed_by_ns.clear()
+        self.n_decode_graph_replays = 0
+        self.n_decode_graph_captures = 0
 
     # ------------------------------------------------------------------
     def _count_streamed_pages(self, live: Sequence[int],
@@ -934,21 +961,39 @@ class DecodeStream:
             eng._count_streamed_pages(live, n_logical, n_logical)
         if tr:
             tracing.lap("decode.count")
-        lens_t = eng._put_rows(lens)
+        # the row grid's operands, in _decode_step's order
+        host_rows = {"tokens": tok, "lengths": lens, "pages": pages,
+                     "slots": slots, "active": act,
+                     "state_rows": eng._state_row_ids(rows, B)}
         if tree_mode:
-            attend = eng._tree_attend(eng._put_repl(meta.page_list),
-                                      eng._put_repl(meta.page_mask),
-                                      eng._put_repl(meta.page_lens),
-                                      meta.n_unique)
+            attn = {"page_list": meta.page_list,
+                    "page_mask": meta.page_mask,
+                    "page_lens": meta.page_lens}
         else:
-            attend = eng._paged_attend(eng._put_repl(bt), lens_t)
-        operands = (eng._put_rows(tok), lens_t, eng._put_rows(pages),
-                    eng._put_rows(slots), eng._put_rows(act),
-                    eng._state_rows(rows, B))
+            attn = {"block_tables": bt}
+        # the expert-parallel MoE's collectives run eagerly
+        graphs = eng.graphs if MOE.MESH is None else None
+        if graphs is not None:
+            if tree_mode:
+                attn["n_live"] = np.array([meta.n_unique], np.int32)
+            key = graphs.put(host_rows, attn)
+        else:
+            operands = [eng._put_rows(a) for a in host_rows.values()]
+            dev_attn = {k: eng._put_repl(a) for k, a in attn.items()}
+            if tree_mode:
+                dev_attn["n_live"] = meta.n_unique
         if tr:
             tracing.lap("decode.put")
-        logits = eng._decode_step(*operands, attend)
+        if graphs is not None:
+            logits = graphs.run(eng, key)
+        else:
+            logits = eng._decode_step(*operands,
+                                      eng._attend(dev_attn, operands[1]))
         if tr:
+            # the dtype the stream ends in (the logits keep it): the
+            # compute dtype, or float32 where float32 params promote it
+            tracing.annotate(graph=int(graphs is not None),
+                             dtype=str(logits.dtype).removeprefix("torch."))
             tracing.lap("decode.forward")
         if ecfg.trace_logits:
             eng.logits_trace.append(logits.float().cpu().numpy())
@@ -986,3 +1031,129 @@ class DecodeStream:
         if tr:
             tracing.lap("decode.book")
         return finished
+
+
+class DecodeGraphs:
+    """The decode forward (``PagedEngine._decode_step``) replayed from
+    one captured graph per shape key.
+
+    Rows are always the ``max_batch`` grid (inactive rows write to the
+    dump page), so the key is the shapes of the attention operands: the
+    page-list bucket N in tree mode (``tree_metadata`` pads it to a power
+    of two, so a few keys serve a run), one key in paged mode (the block
+    table is ``max_pages_per_seq`` wide).  The operands live in static
+    device buffers, the row grid's shared by every key and the attention
+    operands' per key; ``put`` overwrites every entry of them, pad
+    entries included, so nothing of an earlier, larger tree survives.
+    Tree mode's live count is a device operand too: the tree kernel
+    sizes its grid for the bucket and reads the count.
+
+    ``run`` captures a key at its first use, after the key's eager run
+    (that iteration's own forward, on a side stream), and replays it
+    from then on.  Every key's graph allocates from one memory pool;
+    replays run one at a time on the engine's stream.  The logits are
+    the graph's output tensor, rewritten by the key's next replay: the
+    sampler reads them before it.  A replay raises each kernel's
+    ``launches`` by the launches its capture recorded and, traced, each
+    count the captured forward raised (``tracing.collect``).
+
+    ``capture(fn) -> replay``: record ``fn``, which reads only the static
+    buffers, without running it; ``replay()`` runs the record and
+    returns its output.  None is a CUDA graph capture; a test may pass a
+    stand-in.
+    """
+
+    def __init__(self, device, capture=None):
+        self.device = device
+        self.rows: Optional[Dict[str, torch.Tensor]] = None
+        self._keys: Dict[tuple, dict] = {}
+        self.stream = None
+        if capture is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
+            capture = self._cuda_capture
+        self.capture = capture
+
+    def _static(self, host: dict) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, copy=True) for k, a in host.items()}
+
+    @staticmethod
+    def _fill(bufs: Dict[str, torch.Tensor], host: dict) -> None:
+        for k, a in host.items():
+            bufs[k].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
+    def put(self, rows: dict, attn: dict) -> tuple:
+        """Write one iteration's host operands into the static buffers;
+        returns the key to ``run``."""
+        if self.rows is None:
+            self.rows = self._static(rows)
+        else:
+            self._fill(self.rows, rows)
+        key = tuple((k, a.shape) for k, a in attn.items())
+        entry = self._keys.get(key)
+        if entry is None:
+            self._keys[key] = {"attn": self._static(attn), "replay": None}
+        else:
+            self._fill(entry["attn"], attn)
+        return key
+
+    def run(self, engine, key: tuple) -> torch.Tensor:
+        """The masked logits (B, V) of the operands ``put`` last wrote.
+        The engine is passed, not kept, so the graphs and their memory
+        pool are freed with it."""
+        entry = self._keys[key]
+        if entry["replay"] is None:
+            return self._first(engine, entry)
+        out = entry["replay"]()
+        for k, n in entry["launches"]:
+            k.launches += n
+        if tracing.on:
+            for name, n in entry["counts"]:
+                tracing.count(name, n)
+        engine.n_decode_graph_replays += 1
+        return out
+
+    def _first(self, engine, entry: dict) -> torch.Tensor:
+        """A key's first use: its forward runs eagerly, then is
+        captured (which runs nothing, so nothing is counted twice)."""
+        rows, attn = self.rows, entry["attn"]
+
+        def forward():
+            return engine._decode_step(*rows.values(),
+                                       engine._attend(attn, rows["lengths"]))
+
+        out = self._warm(forward)
+        before = [k.launches for k in ops.KERNELS]
+        with tracing.collect() as counts:
+            entry["replay"] = self.capture(forward)
+        entry["launches"] = [(k, k.launches - n)
+                             for k, n in zip(ops.KERNELS, before)]
+        for k, n in zip(ops.KERNELS, before):
+            k.launches = n
+        entry["counts"] = counts
+        engine.n_decode_graph_captures += 1
+        return out
+
+    def _warm(self, fn) -> torch.Tensor:
+        """``fn()`` eagerly, on the side stream where there is one."""
+        if self.stream is None:
+            return fn()
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        out.record_stream(cur)
+        return out
+
+    def _cuda_capture(self, fn):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self._pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+
+        def replay():
+            g.replay()
+            return out
+        return replay

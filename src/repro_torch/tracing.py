@@ -17,7 +17,9 @@ since.
     namespace is ``attrs["ns"]``.
   * ``count(name, n=1)`` raises a counter.  ``n`` may be a device
     tensor: the counter is then summed on the device, and read once, by
-    ``snapshot()``.
+    ``snapshot()``.  Inside ``collect()`` the counts go to its list
+    instead, on or off: a captured forward's, which each of its replays
+    raises again.
 
 ``snapshot()`` also reads the counters the program keeps anyway: those
 of every live ``PagedEngine`` (``watch``), and each CUDA kernel's
@@ -39,6 +41,7 @@ At most ``CAP`` spans are kept; later ones are dropped and counted in
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import threading
@@ -61,6 +64,8 @@ ENGINE_COUNTERS = (
     ("kv.logical_pages_streamed", "logical_pages_streamed"),
     ("kv.cow_pages", "n_cow_pages"),
     ("kv.swap_outs", "n_swap_outs"),
+    ("decode.graph_replays", "n_decode_graph_replays"),
+    ("decode.graph_captures", "n_decode_graph_captures"),
 )
 
 
@@ -81,6 +86,7 @@ _ids = itertools.count(1)
 _local = threading.local()
 _engines: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _launch_base: Dict[str, int] = {}
+_sink: Optional[list] = None
 
 
 def enable() -> None:
@@ -214,8 +220,26 @@ def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:
 
 
 def count(name: str, n=1) -> None:
-    if on:
+    if _sink is not None:
+        _sink.append((name, n))
+    elif on:
         _counts[name] = _counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def collect():
+    """Keep the ``(name, n)`` of every ``count`` inside in the list this
+    yields, and add none of them.  ``on`` reads true meanwhile, so every
+    count site fires: the counts of a forward being captured into a
+    graph, where a device ``n`` is the graph's own output, rewritten by
+    each replay."""
+    global on, _sink
+    was, _sink = on, []
+    on = True
+    try:
+        yield _sink
+    finally:
+        on, _sink = was, None
 
 
 def snapshot() -> Dict[str, Any]:

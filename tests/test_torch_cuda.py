@@ -7,7 +7,8 @@ on machines that have only the port's dependencies:
 Each CUDA kernel against its plain version on the card (tolerances of
 the reference's kernel tests), its launch counter, the sampler's known
 answers on the card, a tiny engine on the card against the same
-engine on the CPU (plain path), and the plain-PyTorch paths of the
+engine on the CPU (plain path), the decode forward replayed from CUDA
+graphs against the eager forward, and the plain-PyTorch paths of the
 families' training (MoE dispatch and combine, forward and backward) and
 of the contiguous cache, the card against the CPU; a 1-device-mesh
 engine and the expert-parallel MoE layer on a world-size-1 NCCL group.
@@ -194,6 +195,45 @@ def test_tree_kernel_leaf_chunks(cuda, pps, hd):
         out, tree_attention_ref(*args, scale=hd ** -0.5), rtol=3e-5,
         atol=3e-5)
     assert torch.all(out[torch.as_tensor(masked, device=cuda)] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_kernel_device_live_count(cuda, dtype, pps):
+    """A grid sized for the whole 64-entry bucket, reading the live count
+    from the device, against today's launch trimmed to the same count on
+    the host: bitwise equal at counts 1, pps - 1, pps, N - 1 and N (the
+    entries past the count are dump entries), one launch each."""
+    B, H, K, hd, S, P, N = 24, 8, 2, 64, 16, 160, 64
+    q, kp, vp = (_rand((B, H, hd), dtype, cuda),
+                 _rand((P, S, K, hd), dtype, cuda),
+                 _rand((P, S, K, hd), dtype, cuda))
+    step = pps or ops.TREE_PAGES_PER_SPLIT
+    for n in (1, step - 1, step, N - 1, N):
+        pl = np.full(N, P - 1, np.int32)
+        pl[:n] = RNG.choice(P - 1, n, replace=False)
+        mask = np.zeros((N, B), np.int8)
+        mask[:n] = RNG.random((n, B)) < 0.4
+        mask[0, :B - 2] = 1               # the last two rows stay masked
+        mask[:, B - 2:] = 0
+        lens = np.zeros(N, np.int32)
+        lens[:n] = RNG.integers(1, S + 1, n)
+        args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda)
+                                   for a in (pl, mask, lens))
+        before = ops.TREE.launches
+        host = ops.tree_attention(*args, scale=hd ** -0.5,
+                                  pages_per_split=pps, n_live=n)
+        dev = ops.tree_attention(
+            *args, scale=hd ** -0.5, pages_per_split=pps,
+            n_live=torch.tensor([n], dtype=torch.int32, device=cuda))
+        assert ops.TREE.launches == before + 2
+        assert torch.equal(host, dev), n
+        assert torch.all(dev[B - 2:] == 0)
+        want = tree_attention_ref(*(a.float() if a.is_floating_point()
+                                    else a for a in args), scale=hd ** -0.5)
+        tol = 3e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(dev.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -478,6 +518,67 @@ def test_engine_on_card_matches_cpu(cuda, arch, dtype, mode):
         assert compared >= 3 * len(ids)
     kernel = ops.PAGED if mode == "paged" else ops.TREE
     assert kernel.launches > 0 and ops.FLASH.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("qwen2-vl-7b", "float32", id="mrope-float32"),
+    pytest.param("qwen2-vl-7b", "bfloat16", id="mrope-bf16"),
+    pytest.param("deepseek-moe-16b", "bfloat16", id="moe-bf16"),
+    pytest.param("zamba2-7b", "float32", id="hybrid-float32")])
+def test_graph_decode_matches_eager_bitwise(cuda, arch, dtype, mode):
+    """The decode forward replayed from CUDA graphs against the same
+    engine decoding eagerly (its graphs taken away), traced: over 40
+    iterations whose tree buckets grow, are replayed out of capture
+    order and shrink within a bucket (``test_torch_decode_graphs``'s
+    drive), the same logits bit for bit and the same greedy tokens; one
+    capture per key and a replay for every other iteration; each
+    kernel's launches (a replay adds its capture's), the MoE's routed
+    and dropped counts and the copy-on-write pages equal the eager
+    run's."""
+    from test_torch_decode_graphs import _drive
+    from repro_torch import tracing
+    cfg = dataclasses.replace(tiny_variant(get_config(arch)), dtype=dtype)
+    lm = build_model(cfg, device=cuda)
+    params = lm.cast_params(lm.init(torch.Generator().manual_seed(0)))
+    params = tree_map(lambda a: a.to(cuda), params)
+    runs = []
+    for graphed in (False, True):
+        e = PagedEngine(lm, params, EngineConfig(
+            n_pages=96, page_size=4, max_batch=8, max_seq_len=128,
+            attention=mode, trace_logits=True), device=cuda)
+        assert e.graphs is not None
+        if not graphed:
+            e.graphs = None
+        ops.reset_launch_counts()
+        tracing.enable()
+        tracing.reset()
+        try:
+            out, n = _drive(e, cfg.vocab_size)
+            snap = tracing.snapshot()["counters"]
+        finally:
+            tracing.disable()
+        runs.append((e, out, n, snap))
+    (eager, out_e, n, c_e), (e, out_g, n_g, c_g) = runs
+    assert n == n_g >= 32 and out_e == out_g
+    # the prefill's logits lead each trace
+    assert len(eager.logits_trace) == len(e.logits_trace) == n + 1
+    for x, y in zip(eager.logits_trace, e.logits_trace):
+        np.testing.assert_array_equal(x, y)
+    keys = len(e.graphs._keys)
+    assert (keys == 1) if mode == "paged" else (keys >= 3)
+    assert c_g["decode.graph_captures"] == e.n_decode_graph_captures == keys
+    assert c_g["decode.graph_replays"] == n - keys
+    assert c_e["decode.graph_captures"] == c_e["decode.graph_replays"] == 0
+    for name, v in c_e.items():
+        if not name.startswith("decode.graph"):
+            assert c_g[name] == v, name
+    if cfg.moe is not None:
+        assert c_g[f"moe.routed/{cfg.name}"] > 0
+    kernel = ops.PAGED if mode == "paged" else ops.TREE
+    for entry in e.graphs._keys.values():
+        assert dict(entry["launches"])[kernel] == e.n_kv_layers
 
 
 @pytest.mark.cuda
@@ -816,6 +917,9 @@ def test_one_device_mesh_engine_on_card(cuda, nccl_mesh, mode):
                      e.logits_trace))
         kernel = ops.PAGED if mode == "paged" else ops.TREE
         assert kernel.launches > 0 and ops.FLASH.launches > 0
+        # the mesh engine decodes eagerly; the mesh-less one replays
+        assert (e.graphs is None) == (mesh is not None)
+        assert (e.n_decode_graph_replays > 0) == (mesh is None)
     assert outs[0][0] == outs[1][0]
     for a, b in zip(outs[0][1], outs[1][1]):
         np.testing.assert_array_equal(a, b)

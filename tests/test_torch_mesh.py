@@ -132,6 +132,19 @@ def test_one_device_mesh_gives_the_meshless_trees(stacks, mesh, attention):
     engine.alloc.check_invariants()
 
 
+@pytest.mark.parametrize("attention", ["tree", "paged"])
+def test_mesh_and_cpu_engines_never_capture_the_decode(stacks, mesh,
+                                                       attention):
+    """The decode forward is captured only on a card without a mesh
+    (``serving.engine.DecodeGraphs``): these engines decode eagerly."""
+    for m in (None, mesh):
+        engine, backend = _backend(stacks, attention, mesh=m)
+        run_search_many(backend, LM_SCFG, LM_PROMPTS[:1])
+        assert engine.graphs is None and engine.n_decode_steps > 0
+        assert engine.n_decode_graph_captures == 0
+        assert engine.n_decode_graph_replays == 0
+
+
 def test_multi_device_mesh_refused_on_the_plain_path(stacks):
     with pytest.raises(NotImplementedError, match="4-device mesh"):
         _backend(stacks, mesh=FakeBigMesh())
