@@ -1063,12 +1063,15 @@ def tree_chunks(ops, args, kw):
     q, kp, _, pl, pm, plen = args
     if not q.is_cuda:
         return None
+    # the grid covers every entry; the live ones lead, counted on the
+    # device when the call passed its count
     n = kw.get("n_live")
-    lb = ops.tree_leaves_per_cta(q, kp, pl.shape[0] if n is None else n,
+    n = pl.shape[0] if n is None else int(n.item())
+    lb = ops.tree_leaves_per_cta(q, kp, pl.shape[0],
                                  pages_per_split=kw.get("pages_per_split"))
     B = q.shape[0]
-    mask = pm.cpu().numpy().astype(bool)
-    lens = plen.cpu().numpy().astype(np.int64)
+    mask = pm[:n].cpu().numpy().astype(bool)
+    lens = plen[:n].cpu().numpy().astype(np.int64)
     slot = kp.shape[2] * kp.shape[3] * 2 * kp.element_size()
     read = sum(int(lens[mask[:, c:c + lb].any(axis=1)].sum())
                for c in range(0, B, lb))

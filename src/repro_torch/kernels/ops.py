@@ -11,7 +11,7 @@ Every kernel keeps a plain launch counter (``Kernel.launches``) of its
 runs, so a run can show that its main path went through the kernels:
 raised by one where its wrapper launches it, and by each replay of a
 captured decode forward for every launch the capture recorded
-(``serving.engine.DecodeGraphs``; a capture itself runs nothing).
+(``serving.engine.DecodeRunner``; a capture itself runs nothing).
 """
 from __future__ import annotations
 
@@ -215,16 +215,17 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     (N,B) int8; page_lens (N,) int32.  Returns (B,H,hd).
 
     ``pages_per_split`` is the split pass's page run per CTA (None =
-    ``TREE_PAGES_PER_SPLIT``).  ``n_live`` is the count of leading
-    ``page_list`` entries that may be live (every later entry must be a
-    zero-length dump entry): an int known on the host trims the grid to
-    them; a (1,) int32 tensor on q's device is read by the kernel, whose
-    grid then covers all N entries and whose CTAs past the count exit at
-    once (one launch shape for any count, as a CUDA graph replays).
-    Neither changes the result.
+    ``TREE_PAGES_PER_SPLIT``).  ``n_live``, None or a (1,) int32 tensor
+    on q's device, is the count of leading ``page_list`` entries that may
+    be live (every later entry must be a zero-length dump entry): the
+    grid covers all N entries and the kernel reads the count, so CTAs
+    past it exit at once (one launch shape for any count, as a CUDA
+    graph replays).  It does not change the result.
     """
-    on_device = isinstance(n_live, torch.Tensor)
-    if on_device:
+    if n_live is not None:
+        if not isinstance(n_live, torch.Tensor):
+            raise TypeError(f"n_live must be None or a (1,) int32 tensor on "
+                            f"q's device, got {type(n_live).__name__}")
         _check("n_live", n_live, q.device, torch.int32, (1,))
     if _on_cpu(q):
         return tree_attention_ref(q, k_pool, v_pool, page_list, page_mask,
@@ -250,10 +251,8 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
     if pps < 1:
         raise ValueError(f"pages_per_split must be >= 1, got "
                          f"{pages_per_split}")
-    n_cover = N if n_live is None or on_device \
-        else max(0, min(int(n_live), N))
-    pps = max(1, min(pps, n_cover))
-    n_splits = -(-n_cover // pps)
+    pps = max(1, min(pps, N))
+    n_splits = -(-N // pps)
     out = torch.empty_like(q)
     # one scratch buffer for the split partials: acc (n_splits, B, H, hd)
     # and (m, l) (n_splits, B, H, 2) in float32, hit flags (n_splits, B)
@@ -266,8 +265,8 @@ def tree_attention(q, k_pool, v_pool, page_list, page_mask, page_lens, *,
                 page_list.data_ptr(), page_mask.data_ptr(),
                 page_lens.data_ptr(), out.data_ptr(), base, base + acc_bytes,
                 base + acc_bytes + ml_bytes,
-                n_live.data_ptr() if on_device else None, B, n_cover, S, K,
-                G, hd, pps, float(scale), code, _stream(dev))
+                None if n_live is None else n_live.data_ptr(), B, N, S, K, G,
+                hd, pps, float(scale), code, _stream(dev))
     return out
 
 

@@ -61,12 +61,12 @@ one-shot oracle, plain masked attention over the bucket
 (``make_mask`` + ``masked_attention``), with K/V written to the pool the
 same way.
 
-On a card without a mesh the decode forward (``_decode_step``, the
-embedding lookup to the masked logits) runs as one CUDA graph replay per
-iteration (:class:`DecodeGraphs`): captured once per shape key at its
-first use, it replays the very kernels the eager forward launches, on
-the same shapes, so the host no longer enqueues them one by one.  On
-the CPU, on a mesh and on the expert-parallel MoE path it runs eagerly.
+Every engine decodes through one :class:`DecodeRunner`, over static
+operand buffers.  On a card without a mesh the forward (``_decode_step``,
+the embedding lookup to the masked logits) runs as one CUDA graph replay
+per iteration, captured once per shape key at its first use: the host no
+longer enqueues its kernels one by one.  On the CPU, on a mesh and on the
+expert-parallel MoE path the same forward runs eagerly.
 
 ``EngineConfig.mesh`` (a ``DeviceMesh`` from ``launch.mesh``) places the
 pool by the serve policy (``launch.sharding.pool_spec``: pages on
@@ -247,9 +247,7 @@ class PagedEngine:
         # captures (one per shape key); both stay 0 where it runs eagerly
         self.n_decode_graph_replays = 0
         self.n_decode_graph_captures = 0
-        self.graphs: Optional[DecodeGraphs] = None
-        if self.device.type == "cuda" and self.mesh is None:
-            self.graphs = DecodeGraphs(self.device)
+        self.runner = DecodeRunner.for_engine(self.device, self.mesh)
         tracing.watch(self)
 
     def _put(self, arr) -> torch.Tensor:
@@ -267,7 +265,8 @@ class PagedEngine:
             raise NotImplementedError(
                 f"a {mesh.size()}-device mesh on the plain path: the "
                 f"engine's in-place pool writes have no DTensor partition "
-                f"(ROADMAP.md queue 3); use a 1-device mesh")
+                f"(ROADMAP.md, \"A PagedEngine over more than one rank\"); "
+                f"use a 1-device mesh")
         if mesh.device_type != self.device.type:
             raise ValueError(f"the mesh is on {mesh.device_type}, the "
                              f"engine on {self.device}")
@@ -451,8 +450,8 @@ class PagedEngine:
         """Tree decode: attention walks the unique live pages of the
         whole tree; a shared prefix page is streamed once per kv head.
         ``n_live``, the count of live entries (they lead the page list),
-        trims the kernel's grid as a host int, or is read by the kernel
-        as a (1,) device tensor (``ops.tree_attention``)."""
+        is a (1,) int32 tensor on the device: the kernel covers the
+        page-list bucket and reads it (``ops.tree_attention``)."""
         def attend(l, q, pk, pv):
             return ops.tree_attention(q, pk[l], pv[l], page_list, page_mask,
                                       page_lens, scale=self.scale,
@@ -968,31 +967,19 @@ class DecodeStream:
         if tree_mode:
             attn = {"page_list": meta.page_list,
                     "page_mask": meta.page_mask,
-                    "page_lens": meta.page_lens}
+                    "page_lens": meta.page_lens,
+                    "n_live": np.array([meta.n_unique], np.int32)}
         else:
             attn = {"block_tables": bt}
-        # the expert-parallel MoE's collectives run eagerly
-        graphs = eng.graphs if MOE.MESH is None else None
-        if graphs is not None:
-            if tree_mode:
-                attn["n_live"] = np.array([meta.n_unique], np.int32)
-            key = graphs.put(host_rows, attn)
-        else:
-            operands = [eng._put_rows(a) for a in host_rows.values()]
-            dev_attn = {k: eng._put_repl(a) for k, a in attn.items()}
-            if tree_mode:
-                dev_attn["n_live"] = meta.n_unique
+        runner = eng.runner
+        key = runner.put(eng, host_rows, attn)
         if tr:
             tracing.lap("decode.put")
-        if graphs is not None:
-            logits = graphs.run(eng, key)
-        else:
-            logits = eng._decode_step(*operands,
-                                      eng._attend(dev_attn, operands[1]))
+        logits = runner.run(eng, key)
         if tr:
             # the dtype the stream ends in (the logits keep it): the
             # compute dtype, or float32 where float32 params promote it
-            tracing.annotate(graph=int(graphs is not None),
+            tracing.annotate(graph=int(runner.graphed),
                              dtype=str(logits.dtype).removeprefix("torch."))
             tracing.lap("decode.forward")
         if ecfg.trace_logits:
@@ -1033,69 +1020,64 @@ class DecodeStream:
         return finished
 
 
-class DecodeGraphs:
-    """The decode forward (``PagedEngine._decode_step``) replayed from
-    one captured graph per shape key.
+class DecodeRunner:
+    """The decode forward (``PagedEngine._decode_step``) over static
+    operand buffers, run eagerly or replayed from one captured graph per
+    shape key.
 
     Rows are always the ``max_batch`` grid (inactive rows write to the
     dump page), so the key is the shapes of the attention operands: the
     page-list bucket N in tree mode (``tree_metadata`` pads it to a power
     of two, so a few keys serve a run), one key in paged mode (the block
-    table is ``max_pages_per_seq`` wide).  The operands live in static
-    device buffers, the row grid's shared by every key and the attention
-    operands' per key; ``put`` overwrites every entry of them, pad
-    entries included, so nothing of an earlier, larger tree survives.
-    Tree mode's live count is a device operand too: the tree kernel
-    sizes its grid for the bucket and reads the count.
+    table is ``max_pages_per_seq`` wide).  The row grid's buffers serve
+    every key, the attention operands' (tree mode's live count too) one
+    key each.  A buffer is made once, from a copy of its first host array,
+    through the engine's placement (``_put_rows`` / ``_put_repl``);
+    ``put`` overwrites every entry, pad entries included, so nothing of
+    an earlier, larger tree survives.
 
-    ``run`` captures a key at its first use, after the key's eager run
-    (that iteration's own forward, on a side stream), and replays it
-    from then on.  Every key's graph allocates from one memory pool;
-    replays run one at a time on the engine's stream.  The logits are
-    the graph's output tensor, rewritten by the key's next replay: the
-    sampler reads them before it.  A replay raises each kernel's
-    ``launches`` by the launches its capture recorded and, traced, each
-    count the captured forward raised (``tracing.collect``).
-
-    ``capture(fn) -> replay``: record ``fn``, which reads only the static
+    ``capture(fn) -> replay`` records ``fn``, which reads only the static
     buffers, without running it; ``replay()`` runs the record and
-    returns its output.  None is a CUDA graph capture; a test may pass a
-    stand-in.
+    returns its output (rewritten by the key's next replay).  Without a
+    capture, or while ``moe.MESH`` is set (the expert-parallel MoE's
+    collectives), ``run`` runs the forward eagerly; otherwise it captures
+    a key after the key's first, eager run (through the capture's
+    ``warm`` where it has one) and replays it from then on, raising each
+    kernel's ``launches`` and, traced, each count by what the captured
+    forward raised (``tracing.collect``).  ``for_engine`` captures CUDA
+    graphs on a card without a mesh; a test may pass a stand-in.
     """
 
-    def __init__(self, device, capture=None):
-        self.device = device
-        self.rows: Optional[Dict[str, torch.Tensor]] = None
-        self._keys: Dict[tuple, dict] = {}
-        self.stream = None
-        if capture is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(device)
-            capture = self._cuda_capture
+    def __init__(self, capture=None):
         self.capture = capture
+        self.rows: Dict[str, torch.Tensor] = {}
+        self._keys: Dict[tuple, dict] = {}
 
-    def _static(self, host: dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, copy=True) for k, a in host.items()}
+    @classmethod
+    def for_engine(cls, device, mesh) -> "DecodeRunner":
+        on_card = device.type == "cuda" and mesh is None
+        return cls(CudaGraphCapture(device) if on_card else None)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether ``run`` captures and replays the forward."""
+        return self.capture is not None and MOE.MESH is None
 
     @staticmethod
-    def _fill(bufs: Dict[str, torch.Tensor], host: dict) -> None:
+    def _write(bufs: Dict[str, torch.Tensor], host: dict, place) -> None:
         for k, a in host.items():
-            bufs[k].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            if k in bufs:
+                bufs[k].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            else:
+                bufs[k] = place(np.array(a))
 
-    def put(self, rows: dict, attn: dict) -> tuple:
+    def put(self, engine, rows: dict, attn: dict) -> tuple:
         """Write one iteration's host operands into the static buffers;
         returns the key to ``run``."""
-        if self.rows is None:
-            self.rows = self._static(rows)
-        else:
-            self._fill(self.rows, rows)
+        self._write(self.rows, rows, engine._put_rows)
         key = tuple((k, a.shape) for k, a in attn.items())
-        entry = self._keys.get(key)
-        if entry is None:
-            self._keys[key] = {"attn": self._static(attn), "replay": None}
-        else:
-            self._fill(entry["attn"], attn)
+        entry = self._keys.setdefault(key, {"attn": {}, "replay": None})
+        self._write(entry["attn"], attn, engine._put_repl)
         return key
 
     def run(self, engine, key: tuple) -> torch.Tensor:
@@ -1103,8 +1085,16 @@ class DecodeGraphs:
         The engine is passed, not kept, so the graphs and their memory
         pool are freed with it."""
         entry = self._keys[key]
+
+        def forward():
+            return engine._decode_step(
+                *self.rows.values(),
+                engine._attend(entry["attn"], self.rows["lengths"]))
+
+        if not self.graphed:
+            return forward()
         if entry["replay"] is None:
-            return self._first(engine, entry)
+            return self._first(engine, entry, forward)
         out = entry["replay"]()
         for k, n in entry["launches"]:
             k.launches += n
@@ -1114,16 +1104,11 @@ class DecodeGraphs:
         engine.n_decode_graph_replays += 1
         return out
 
-    def _first(self, engine, entry: dict) -> torch.Tensor:
+    def _first(self, engine, entry: dict, forward) -> torch.Tensor:
         """A key's first use: its forward runs eagerly, then is
         captured (which runs nothing, so nothing is counted twice)."""
-        rows, attn = self.rows, entry["attn"]
-
-        def forward():
-            return engine._decode_step(*rows.values(),
-                                       engine._attend(attn, rows["lengths"]))
-
-        out = self._warm(forward)
+        warm = getattr(self.capture, "warm", None)
+        out = forward() if warm is None else warm(forward)
         before = [k.launches for k in ops.KERNELS]
         with tracing.collect() as counts:
             entry["replay"] = self.capture(forward)
@@ -1135,10 +1120,19 @@ class DecodeGraphs:
         engine.n_decode_graph_captures += 1
         return out
 
-    def _warm(self, fn) -> torch.Tensor:
-        """``fn()`` eagerly, on the side stream where there is one."""
-        if self.stream is None:
-            return fn()
+
+class CudaGraphCapture:
+    """``capture(fn) -> replay`` as a CUDA graph on ``device``: every
+    graph allocates from one memory pool and is captured on one side
+    stream, where ``warm`` runs a key's eager first forward; replays run
+    one at a time on the engine's stream."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+
+    def warm(self, fn) -> torch.Tensor:
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -1147,9 +1141,9 @@ class DecodeGraphs:
         out.record_stream(cur)
         return out
 
-    def _cuda_capture(self, fn):
+    def __call__(self, fn):
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self._pool, stream=self.stream,
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream,
                               capture_error_mode="thread_local"):
             out = fn()
 

@@ -26,6 +26,7 @@ from repro_torch.kernels.ref import (flash_prefill_f64, flash_prefill_ref,
 from repro_torch.kvcache import build_tree_metadata
 from repro_torch.models.model import build_model, tree_leaves, tree_map
 from repro_torch.serving import EngineConfig, PagedEngine, sampler
+from repro_torch.serving.engine import DecodeRunner
 
 RNG = np.random.default_rng(3)
 
@@ -39,6 +40,11 @@ def cuda():
 
 def _rand(shape, dtype, dev):
     return torch.as_tensor(RNG.normal(size=shape), dtype=dtype, device=dev)
+
+
+def _live(n, dev):
+    """The tree kernel's live count, a (1,) int32 tensor on ``dev``."""
+    return torch.tensor([n], dtype=torch.int32, device=dev)
 
 
 @pytest.mark.cuda
@@ -161,7 +167,7 @@ def test_tree_kernel(cuda, pps, B):
         meta.page_list, meta.page_mask, meta.page_lens))
     pps = meta.page_list.shape[0] if pps == "N" else pps
     want = tree_attention_ref(*args, scale=0.125)
-    for n_live in (None, meta.n_unique):
+    for n_live in (None, _live(meta.n_unique, cuda)):
         before = ops.TREE.launches
         out = ops.tree_attention(*args, scale=0.125, pages_per_split=pps,
                                  n_live=n_live)
@@ -190,7 +196,7 @@ def test_tree_kernel_leaf_chunks(cuda, pps, hd):
     args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
         meta.page_list, meta.page_mask, meta.page_lens))
     out = ops.tree_attention(*args, scale=hd ** -0.5, pages_per_split=pps,
-                             n_live=meta.n_unique)
+                             n_live=_live(meta.n_unique, cuda))
     torch.testing.assert_close(
         out, tree_attention_ref(*args, scale=hd ** -0.5), rtol=3e-5,
         atol=3e-5)
@@ -202,9 +208,10 @@ def test_tree_kernel_leaf_chunks(cuda, pps, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tree_kernel_device_live_count(cuda, dtype, pps):
     """A grid sized for the whole 64-entry bucket, reading the live count
-    from the device, against today's launch trimmed to the same count on
-    the host: bitwise equal at counts 1, pps - 1, pps, N - 1 and N (the
-    entries past the count are dump entries), one launch each."""
+    from the device, against the same launch walking every entry
+    (``n_live=None``): bitwise equal at counts 1, pps - 1, pps, N - 1
+    and N (the entries past the count are dump entries), one launch
+    each."""
     B, H, K, hd, S, P, N = 24, 8, 2, 64, 16, 160, 64
     q, kp, vp = (_rand((B, H, hd), dtype, cuda),
                  _rand((P, S, K, hd), dtype, cuda),
@@ -222,13 +229,12 @@ def test_tree_kernel_device_live_count(cuda, dtype, pps):
         args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda)
                                    for a in (pl, mask, lens))
         before = ops.TREE.launches
-        host = ops.tree_attention(*args, scale=hd ** -0.5,
-                                  pages_per_split=pps, n_live=n)
-        dev = ops.tree_attention(
-            *args, scale=hd ** -0.5, pages_per_split=pps,
-            n_live=torch.tensor([n], dtype=torch.int32, device=cuda))
+        full = ops.tree_attention(*args, scale=hd ** -0.5,
+                                  pages_per_split=pps)
+        dev = ops.tree_attention(*args, scale=hd ** -0.5,
+                                 pages_per_split=pps, n_live=_live(n, cuda))
         assert ops.TREE.launches == before + 2
-        assert torch.equal(host, dev), n
+        assert torch.equal(full, dev), n
         assert torch.all(dev[B - 2:] == 0)
         want = tree_attention_ref(*(a.float() if a.is_floating_point()
                                     else a for a in args), scale=hd ** -0.5)
@@ -332,7 +338,7 @@ def test_decode_kernels_at_zamba2_heads(cuda, kernel, dtype):
         args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
             meta.page_list, meta.page_mask, meta.page_lens))
         out = ops.tree_attention(*args, scale=hd ** -0.5,
-                                 n_live=meta.n_unique)
+                                 n_live=_live(meta.n_unique, cuda))
         want = tree_attention_ref(*args, scale=hd ** -0.5)
         tol, empty = 3e-5, list(range(n_act, B))
     # bf16: both sides compute in fp32 and round once to bf16
@@ -391,7 +397,7 @@ def test_decode_kernels_at_page_size_8_and_two_groups(cuda, kernel):
         args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
             meta.page_list, meta.page_mask, meta.page_lens))
         out = ops.tree_attention(*args, scale=hd ** -0.5,
-                                 n_live=meta.n_unique)
+                                 n_live=_live(meta.n_unique, cuda))
         want = tree_attention_ref(*args, scale=hd ** -0.5)
         tol = 3e-5
     torch.testing.assert_close(out, want, rtol=tol, atol=tol)
@@ -529,7 +535,7 @@ def test_engine_on_card_matches_cpu(cuda, arch, dtype, mode):
     pytest.param("zamba2-7b", "float32", id="hybrid-float32")])
 def test_graph_decode_matches_eager_bitwise(cuda, arch, dtype, mode):
     """The decode forward replayed from CUDA graphs against the same
-    engine decoding eagerly (its graphs taken away), traced: over 40
+    engine with an eager runner (``DecodeRunner()``), traced: over 40
     iterations whose tree buckets grow, are replayed out of capture
     order and shrink within a bucket (``test_torch_decode_graphs``'s
     drive), the same logits bit for bit and the same greedy tokens; one
@@ -548,9 +554,9 @@ def test_graph_decode_matches_eager_bitwise(cuda, arch, dtype, mode):
         e = PagedEngine(lm, params, EngineConfig(
             n_pages=96, page_size=4, max_batch=8, max_seq_len=128,
             attention=mode, trace_logits=True), device=cuda)
-        assert e.graphs is not None
+        assert e.runner.graphed
         if not graphed:
-            e.graphs = None
+            e.runner = DecodeRunner()
         ops.reset_launch_counts()
         tracing.enable()
         tracing.reset()
@@ -566,7 +572,7 @@ def test_graph_decode_matches_eager_bitwise(cuda, arch, dtype, mode):
     assert len(eager.logits_trace) == len(e.logits_trace) == n + 1
     for x, y in zip(eager.logits_trace, e.logits_trace):
         np.testing.assert_array_equal(x, y)
-    keys = len(e.graphs._keys)
+    keys = len(e.runner._keys)
     assert (keys == 1) if mode == "paged" else (keys >= 3)
     assert c_g["decode.graph_captures"] == e.n_decode_graph_captures == keys
     assert c_g["decode.graph_replays"] == n - keys
@@ -577,7 +583,7 @@ def test_graph_decode_matches_eager_bitwise(cuda, arch, dtype, mode):
     if cfg.moe is not None:
         assert c_g[f"moe.routed/{cfg.name}"] > 0
     kernel = ops.PAGED if mode == "paged" else ops.TREE
-    for entry in e.graphs._keys.values():
+    for entry in e.runner._keys.values():
         assert dict(entry["launches"])[kernel] == e.n_kv_layers
 
 
@@ -738,7 +744,8 @@ def test_decode_kernels_at_qwen2_vl_heads(cuda, kernel, dtype):
                                    for r in live)      # pages are shared
         args = (q, kp, vp) + tuple(torch.as_tensor(a, device=cuda) for a in (
             meta.page_list, meta.page_mask, meta.page_lens))
-        out = ops.tree_attention(*args, scale=scale, n_live=meta.n_unique)
+        out = ops.tree_attention(*args, scale=scale,
+                                 n_live=_live(meta.n_unique, cuda))
         want = tree_attention_ref(*args, scale=scale)
         tol = 3e-5
     rtol = 0.0 if dtype == torch.float32 else 2 * 2 ** -7
@@ -918,7 +925,7 @@ def test_one_device_mesh_engine_on_card(cuda, nccl_mesh, mode):
         kernel = ops.PAGED if mode == "paged" else ops.TREE
         assert kernel.launches > 0 and ops.FLASH.launches > 0
         # the mesh engine decodes eagerly; the mesh-less one replays
-        assert (e.graphs is None) == (mesh is not None)
+        assert (e.n_decode_graph_captures > 0) == (mesh is None)
         assert (e.n_decode_graph_replays > 0) == (mesh is None)
     assert outs[0][0] == outs[1][0]
     for a, b in zip(outs[0][1], outs[1][1]):

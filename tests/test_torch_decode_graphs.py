@@ -1,17 +1,18 @@
-"""The decode forward replayed from captured graphs
-(``serving.engine.DecodeGraphs``), on the CPU.
+"""The decode runner (``serving.engine.DecodeRunner``), on the CPU.
 
-A stand-in capture records the forward and replays it by calling it, so
-the static operand buffers, the shape keys and the counters are held
-here, where the card's graphs cannot run: every iteration's logits and
-tokens equal the eager engine's bit for bit, with every static buffer
-poisoned before each refresh (so no entry of an earlier iteration, a pad
-entry of a larger tree included, can survive), over tree buckets that
-grow, are replayed out of capture order and shrink within a bucket; one
-capture per key.  Engines off the card, on a mesh or under the
+Every engine decodes through the runner's static operand buffers.  A
+stand-in capture records the forward and replays it by calling it, so
+the buffers, the shape keys and the counters are held here, where the
+card's graphs cannot run: every iteration's logits and tokens equal the
+eager engine's bit for bit, with every static buffer poisoned before
+each refresh (so no entry of an earlier iteration, a pad entry of a
+larger tree included, can survive), over tree buckets that grow, are
+replayed out of capture order and shrink within a bucket; one capture
+per key.  A 1-device-mesh engine's eager runner holds the same under
+poisoned buffers.  Engines off the card, on a mesh or under the
 expert-parallel MoE path never capture.  The tree wrapper's device live
 count is checked as an operand.  The card's graphs themselves are held
-to the eager forward by ``tests/test_torch_cuda.py``.
+to the eager runner by ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -22,21 +23,22 @@ from repro_torch.configs import get_config, tiny_variant
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import tree_attention_ref
 from repro_torch.kvcache import build_tree_metadata
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as MOE
 from repro_torch.models.model import build_model
 from repro_torch.serving import EngineConfig, PagedEngine
-from repro_torch.serving.engine import DecodeGraphs
+from repro_torch.serving.engine import DecodeRunner
 
 ARCHS = ["qwen2-vl-7b", "deepseek-moe-16b", "zamba2-7b"]
 
 
-def _engine(arch, mode, seed=0):
+def _engine(arch, mode, seed=0, mesh=None):
     cfg = tiny_variant(get_config(arch))
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(seed))
     return PagedEngine(model, params, EngineConfig(
         n_pages=96, page_size=4, max_batch=8, max_seq_len=128,
-        attention=mode, trace_logits=True), device="cpu")
+        attention=mode, trace_logits=True, mesh=mesh), device="cpu")
 
 
 class StandIn:
@@ -50,28 +52,33 @@ class StandIn:
         return fn
 
 
-def _install(engine):
-    """Stand-in graphs on ``engine``, every static buffer poisoned before
-    each refresh; returns (stand-in, keys put in order, live counts put
-    in order)."""
-    stand_in = StandIn()
-    graphs = DecodeGraphs(engine.device, capture=stand_in)
-    put, keys, lives = graphs.put, [], []
+def _poison(engine):
+    """Every static buffer of ``engine``'s runner poisoned before each
+    refresh; returns (keys put in order, live counts put in order)."""
+    runner = engine.runner
+    put, keys, lives = runner.put, [], []
 
-    def poisoned_put(rows, attn):
-        bufs = [] if graphs.rows is None else list(graphs.rows.values())
-        for entry in graphs._keys.values():
+    def poisoned_put(eng, rows, attn):
+        bufs = list(runner.rows.values())
+        for entry in runner._keys.values():
             bufs += entry["attn"].values()
         for b in bufs:
             b.fill_(True if b.dtype == torch.bool else 7)
-        keys.append(put(rows, attn))
+        keys.append(put(eng, rows, attn))
         if "n_live" in attn:
             lives.append(int(attn["n_live"][0]))
         return keys[-1]
 
-    graphs.put = poisoned_put
-    engine.graphs = graphs
-    return stand_in, keys, lives
+    runner.put = poisoned_put
+    return keys, lives
+
+
+def _install(engine):
+    """A stand-in capture on ``engine``'s runner, its buffers poisoned
+    (``_poison``); returns (stand-in, keys, live counts)."""
+    stand_in = StandIn()
+    engine.runner = DecodeRunner(stand_in)
+    return (stand_in,) + _poison(engine)
 
 
 def _drive(engine, vocab):
@@ -118,7 +125,6 @@ def test_stand_in_replay_matches_eager_bitwise(arch, mode):
     assert graphed.n_decode_graph_captures == len(distinct) \
         == len(stand_in.recorded)
     assert graphed.n_decode_graph_replays == n - len(distinct)
-    assert eager.graphs is None
     assert eager.n_decode_graph_captures == eager.n_decode_graph_replays == 0
     if mode == "paged":
         assert len(distinct) == 1
@@ -159,22 +165,53 @@ def test_stand_in_replays_count_in_the_tracer():
 
 
 def test_off_the_card_and_under_expert_parallel_moe_no_graph_runs():
-    """A CPU engine has no graphs, and graphs installed on an engine stay
-    unused while ``moe.MESH`` is set (the expert-parallel MoE path's
-    collectives run eagerly): the counters stay 0.  The model is dense,
-    so nothing in its forward reads the sentinel mesh."""
+    """A CPU engine's runner captures nothing, and a runner with a
+    capture runs the forward eagerly while ``moe.MESH`` is set (the
+    expert-parallel MoE path's collectives), through the same static
+    buffers: the counters stay 0.  The model is dense, so nothing in
+    its forward reads the sentinel mesh."""
     eager, engine = (_engine("qwen2-vl-7b", "tree") for _ in range(2))
-    assert eager.graphs is None
+    assert eager.runner.capture is None and not eager.runner.graphed
     stand_in, keys, _ = _install(engine)
     saved, MOE.MESH = MOE.MESH, object()
     try:
+        assert not engine.runner.graphed
         outs = [_drive(e, e.cfg.vocab_size) for e in (eager, engine)]
     finally:
         MOE.MESH = saved
     assert outs[0] == outs[1]
-    assert not stand_in.recorded and not keys
+    assert not stand_in.recorded and len(set(keys)) >= 2
     for e in (eager, engine):
         assert e.n_decode_graph_captures == e.n_decode_graph_replays == 0
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return make_host_mesh(device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["paged", "tree"])
+def test_mesh_engine_decodes_through_poisoned_static_buffers(mesh, mode):
+    """A 1-device-mesh engine's runner, every buffer poisoned before each
+    refresh, gives the mesh-less engine's tokens and logits bit for bit;
+    its buffers are placed once per shape with no fallback, and it
+    captures nothing."""
+    plain, meshed = _engine("qwen2-vl-7b", mode), \
+        _engine("qwen2-vl-7b", mode, mesh=mesh)
+    keys, _ = _poison(meshed)
+    vocab = plain.cfg.vocab_size
+    (out_p, n), (out_m, n_m) = _drive(plain, vocab), _drive(meshed, vocab)
+    assert n == n_m >= 32 and len(keys) == n
+    assert out_p == out_m
+    assert len(plain.logits_trace) == len(meshed.logits_trace)
+    for x, y in zip(plain.logits_trace, meshed.logits_trace):
+        np.testing.assert_array_equal(x, y)
+    assert meshed.shard_fallbacks == []
+    assert not meshed.runner.graphed
+    assert meshed.n_decode_graph_captures == meshed.n_decode_graph_replays \
+        == 0
+    meshed.reset()
+    meshed.alloc.check_invariants()
 
 
 def _tree_operands(dev="cpu"):
@@ -194,7 +231,8 @@ def _tree_operands(dev="cpu"):
     (lambda n: torch.tensor([n, n], dtype=torch.int32), ValueError),
     (lambda n: torch.tensor(n, dtype=torch.int32), ValueError),
     (lambda n: torch.empty(1, dtype=torch.int32, device="meta"), ValueError),
-], ids=["int64", "shape-2", "scalar", "other-device"])
+    (lambda n: n, TypeError),
+], ids=["int64", "shape-2", "scalar", "other-device", "host-int"])
 def test_tree_wrapper_checks_the_device_live_count(bad, err):
     args, n = _tree_operands()
     with pytest.raises(err, match="n_live"):
@@ -205,11 +243,10 @@ def test_tree_wrapper_takes_a_device_live_count():
     """A (1,) int32 count on q's device: the plain version's result (the
     entries past the count are dump entries, inert either way)."""
     args, n = _tree_operands()
-    want = tree_attention_ref(*args, scale=0.2)
-    for live in (n, torch.tensor([n], dtype=torch.int32)):
-        torch.testing.assert_close(
-            ops.tree_attention(*args, scale=0.2, n_live=live), want,
-            rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.tree_attention(*args, scale=0.2,
+                           n_live=torch.tensor([n], dtype=torch.int32)),
+        tree_attention_ref(*args, scale=0.2), rtol=0, atol=0)
 
 
 def test_collect_keeps_counts_out_of_the_counters():

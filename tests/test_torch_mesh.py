@@ -136,11 +136,13 @@ def test_one_device_mesh_gives_the_meshless_trees(stacks, mesh, attention):
 def test_mesh_and_cpu_engines_never_capture_the_decode(stacks, mesh,
                                                        attention):
     """The decode forward is captured only on a card without a mesh
-    (``serving.engine.DecodeGraphs``): these engines decode eagerly."""
+    (``serving.engine.DecodeRunner``): these engines' runners run it
+    eagerly."""
     for m in (None, mesh):
         engine, backend = _backend(stacks, attention, mesh=m)
         run_search_many(backend, LM_SCFG, LM_PROMPTS[:1])
-        assert engine.graphs is None and engine.n_decode_steps > 0
+        assert engine.runner.capture is None and engine.n_decode_steps > 0
+        assert engine.runner.rows
         assert engine.n_decode_graph_captures == 0
         assert engine.n_decode_graph_replays == 0
 
