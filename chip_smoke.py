@@ -39,11 +39,20 @@ exits non-zero):
   5. sampling — the threefry known answers on the card (key, split,
                fold_in, bits, two categorical draws over 128256 zeros,
                exact), the time of one 32-row draw against a greedy
-               argmax, then a sampled ETS search (temperature 1.0, width
+               argmax, the sampler's kernel at the benchmark cells'
+               draws (256 rows of bf16 logits at vocab 152064 and
+               102400: tokens bit for bit against the plain version,
+               device ms beside the plain version's and the bound of its
+               bytes, int32 and float64 operations), then a sampled ETS
+               search (temperature 1.0, width
                8, 2 steps) in paged and in tree mode: token agreement
                between the modes and sampled decode tok/s; where the
                modes draw different tokens, the gap between the two
-               candidates' perturbed logits must stay within 1e-4;
+               candidates' perturbed logits must stay within 1e-4; the
+               tree-mode search again with the plain sampler in the
+               kernel's place, every draw on equal logits giving equal
+               tokens; the largest draw of the kernel's searches is its
+               main-path call for the replay phase;
   6. profile — ``torch.profiler`` over 8 tree-mode decode steps of the
                same sweep (32 rows): device busy share and the kernels
                that take the step's device time;
@@ -159,8 +168,8 @@ exits non-zero):
                (1,1) mesh of the NCCL group: one layer against
                ``moe_apply`` (2e-4), then greedy sweeps in paged and
                tree mode with expert parallelism off and on, equal
-               trees, every kernel launched, the all_to_all calls
-               counted;
+               trees, every attention kernel launched, the all_to_all
+               calls counted;
  20a. dryrun — ``python -m repro_torch.launch.dryrun`` (one process per
                combo, started before train_families at the lowest CPU
                priority with no GPU visible, collected after steps):
@@ -171,29 +180,30 @@ exits non-zero):
                the roofline terms, then ``analysis.report``'s tables; no
                kernel runs and the card's memory does not move;
  21. replay  — each kernel against its plain version on the largest
-               inputs the main path gave it, timed (CUDA events, L2
-               flushed between launches; ``ms`` with the host's enqueue
-               time, ``device_ms`` without, see ``Timer``) beside its
-               bound and, for prefill, one ``scaled_dot_product_attention``
-               call as a yardstick (the port never calls it), also at
-               three shapes off the main path; the paged and tree kernels
-               also at each pages-per-split of a sweep, the paged kernel
-               also beside the bound of the logical bytes its rows
-               stream;
+               inputs the main path gave it (the sampler's: the sampled
+               searches' largest draw, tokens bit for bit), timed (CUDA
+               events, L2 flushed between launches; ``ms`` with the
+               host's enqueue time, ``device_ms`` without, see
+               ``Timer``) beside its bound and, for prefill, one
+               ``scaled_dot_product_attention`` call as a yardstick (the
+               port never calls it), also at three shapes off the main
+               path; the paged and tree kernels also at each
+               pages-per-split of a sweep, the paged kernel also beside
+               the bound of the logical bytes its rows stream;
 
 the example and serve phases hold the largest call of each kernel they
 ran against its plain version; every flash call on a float32 bucket of
 1024 tokens or more (parity phase, streamed and swap paths) is also held
-to the same function in float64 (``ORACLE_RATIO``).  Then the kernels
-line ``{"kernels": [...]}`` (``launches``: the sum over the paths
-driven with the counts zeroed just before each — the main sweep in both
-modes, the mesh sweeps and mesh serve, the flash and dense prefills and
-the dense sweeps, streamed, swap, both serving runs, the replica runs, train,
-example, serve, each family's sweeps and swap round, the VLM's sweeps,
-its forward and hubert's, the expert-parallel sweeps, the families'
-training, the contiguous cache, the steps and the dry run —
-``launches_by_path`` each path's) and, last, the device line.  After
-each phase a ``seconds`` line gives its wall time.
+to the same function in float64 (``ORACLE_RATIO``). Then the kernels
+line ``{"kernels": [...]}`` (``launches``: the sum over the paths driven
+with the counts zeroed just before each — the main sweep in both modes,
+the sampled sweeps, the mesh sweeps and mesh serve, the flash and dense
+prefills and the dense sweeps, streamed, swap, both serving runs, the
+replica runs, train, example, serve, each family's sweeps and swap
+round, the VLM's sweeps, its forward and hubert's, the expert-parallel
+sweeps, the families' training, the contiguous cache, the steps and the
+dry run — ``launches_by_path`` each path's) and, last, the device line.
+After each phase a ``seconds`` line gives its wall time.
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -218,6 +228,19 @@ SRC = ROOT / "src"
 # FLOP/s per input type (float32 on the CUDA cores, bf16 tensor cores)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+# and per second of its 132 SMs at the 1.98 GHz those peaks assume: 64
+# int32 lanes an SM, and the float64 pipe's 33.5 TFLOP/s as one add,
+# multiply or FMA per lane
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+PEAK_FP64_OPS = 33.5e12 / 2
+# the sampler's kernel, per element of the logits: int32 operations of
+# threefry2x32 (20 rounds of add, rotate and xor; 5 key injections of
+# two adds; the counter's add) and of the bits and the uniform (xor,
+# shift, or); float64 operations of its two logs, each a subtract, a
+# multiply and an add around log1p, whose path for arguments in [-0.5,
+# 0) is ~25 float64 operations in the kernel's SASS (sm_90a, CUDA 12.8)
+GUMBEL_INT32_OPS = 20 * 3 + 5 * 2 + 1 + 3
+GUMBEL_FP64_OPS = 2 * (3 + 25)
 
 # tolerances of the reference's own kernel tests (tests/test_kernels.py)
 TOL = {("paged_attention", "float32"): 2e-5,
@@ -467,6 +490,44 @@ def bound_ms(nbytes, flops, dtype):
     t_ops = flops / PEAK_FLOPS[str(dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gumbel_call(torch, timer, keys, logits, temperature):
+    """One draw of the sampler's kernel (``ops.gumbel_sample``) held
+    against its plain version (``sampler.gumbel_argmax``) bit for bit
+    and timed: ``ms`` / ``device_ms`` beside the plain version's
+    ``plain_ms`` and the bound of the draw's bytes (logits read once,
+    keys and tokens), int32 and float64 operations."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sampler
+    R, V = logits.shape
+    got = ops.gumbel_sample(keys, logits, temperature)
+    want = sampler.gumbel_argmax(keys, logits, temperature)
+    differ = int((got.long() != want).sum())
+    n = R * V
+    nbytes = n * logits.element_size() + R * (8 + 4)
+    times = {"bytes": nbytes / PEAK_BYTES,
+             "int32": n * GUMBEL_INT32_OPS / PEAK_INT32_OPS,
+             "float64": n * GUMBEL_FP64_OPS / PEAK_FP64_OPS}
+    by = max(times, key=times.get)
+    out = {"rows": R, "vocab": V, "dtype": str(logits.dtype),
+           "temperature": temperature, "tokens_differ": differ,
+           "ms": timer.ms(lambda: ops.gumbel_sample(keys, logits,
+                                                    temperature)),
+           "device_ms": timer.device_ms(lambda: ops.gumbel_sample(
+               keys, logits, temperature)),
+           "plain_ms": timer.ms(lambda: sampler.gumbel_argmax(
+               keys, logits, temperature), reps=5),
+           "bound_ms": times[by] * 1e3, "bound_by": by, "bytes": nbytes,
+           "int32_ops": n * GUMBEL_INT32_OPS,
+           "fp64_ops": n * GUMBEL_FP64_OPS,
+           "ops_per_element": {"int32": GUMBEL_INT32_OPS,
+                               "float64": GUMBEL_FP64_OPS}}
+    if differ:
+        emit({"phase": "parity", "kernel": "gumbel_sample", **out})
+        fail(f"gumbel_sample: {differ} of {R} tokens differ from the plain "
+             f"version at {R} x {V} {logits.dtype}, T {temperature}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -959,9 +1020,47 @@ def first_disagreement(calls_a, calls_b):
     return None, n_calls
 
 
+def check_plain_sampler(torch, np, models, prompts, res_k, calls_k,
+                        dev="cuda"):
+    """The sampled tree-mode search again with the sampler's plain version
+    in the kernel's place: every draw on the same keys and bitwise equal
+    logits must give the kernel run's tokens (``res_k`` and ``calls_k``,
+    its results and ``SampleLog`` calls)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import sampler
+    orig = ops.gumbel_sample
+    ops.gumbel_sample = lambda keys, logits, temperature: \
+        sampler.gumbel_argmax(sampler.as_keys(keys), logits,
+                              temperature).to(torch.int32)
+    try:
+        with SampleLog() as log:
+            res, _, _, _ = run_mode(torch, np, "tree", models, prompts,
+                                    temperature=1.0, max_steps=2,
+                                    phase="sampled_plain", dev=dev)
+    finally:
+        ops.gumbel_sample = orig
+    n_equal = 0
+    for (ka, la, ta, _), (kb, lb, tb, _) in zip(calls_k, log.calls):
+        if not (np.array_equal(ka, kb) and torch.equal(la, lb)):
+            break
+        n_equal += 1
+        if not np.array_equal(ta, tb):
+            fail(f"sampled tree search, draw {n_equal - 1}: the kernel drew "
+                 f"{ta.tolist()}, the plain version {tb.tolist()}")
+    emit({"phase": "sampled_plain_vs_kernel", "draws": len(log.calls),
+          "draws_on_equal_logits": n_equal,
+          "same_tree_tokens": tree_tokens(res) == tree_tokens(res_k)})
+    if n_equal == 0:
+        fail("sampled_plain_vs_kernel: the two searches' first draws saw "
+             "different logits")
+
+
 def phase_sampling(torch, np, models, prompts, timer):
-    """The sampler's known answers on the card, then a sampled ETS sweep
-    in each attention mode, held against each other."""
+    """The sampler's known answers on the card, its kernel at the cells'
+    draws, then a sampled ETS sweep in each attention mode, held against
+    each other, and the tree-mode sweep again with the sampler's plain
+    version, held to the kernel's draws.  Returns the largest draw
+    (keys, logits, temperature) and the sampled sweeps' launches."""
     from repro_torch.serving import sampler
     k0 = sampler.key(0)
     zeros = torch.zeros(1, 128256, device="cuda")
@@ -996,6 +1095,13 @@ def phase_sampling(torch, np, models, prompts, timer):
               keys, logits, 1.0)),
           "greedy_ms": timer.ms(lambda: sampler.sample_tokens_rowwise(
               keys, logits, 0.0))})
+    # the benchmark cells' draws: 256 rows of bf16 logits at qwen2-vl's
+    # and deepseek-moe's vocab
+    for V in (152064, 102400):
+        big = torch.randn(256, V, device="cuda").to(torch.bfloat16)
+        emit({"phase": "sampler_kernel", **gumbel_call(
+            torch, timer, sampler.split(sampler.key(V), 256), big, 1.0)})
+        del big
     runs = {}
     for mode in ("paged", "tree"):
         with SampleLog() as log:
@@ -1025,6 +1131,14 @@ def phase_sampling(torch, np, models, prompts, timer):
                 for n in res[0].tree.nodes[1:]}
         if len(kids) < 2:
             fail(f"sampled {mode} search drew one branch only")
+    check_plain_sampler(torch, np, models, prompts, *runs["tree"][:2])
+    # the largest draw of the sampled searches: the sampler kernel's
+    # main-path call, and the launches of the two searches
+    keys, logits, _, temp = max(
+        (c for m in runs for c in runs[m][1]),
+        key=lambda c: c[1].shape[0] * c[1].shape[1])
+    launches = {n: sum(runs[m][2][n] for m in runs) for n in runs["tree"][2]}
+    return (keys, logits, temp), launches
 
 
 def compare_modes(np, res_p, trace_p, res_t, trace_t):
@@ -1046,6 +1160,7 @@ def compare_modes(np, res_p, trace_p, res_t, trace_t):
         fail(f"paged and tree decode disagree: {worst} over {n_cmp} steps")
 
 
+SAMPLER = "gumbel_sample"      # the kernel that is not attention
 PLAIN = {"paged_attention": "paged_attention_ref",
          "tree_attention": "tree_attention_ref",
          "flash_prefill": "flash_prefill_ref"}
@@ -1117,6 +1232,17 @@ def phase_replay(torch, recorder, launches, timer):
             fail(f"{k.name} never ran on the main path")
         _, args, kw = recorder.best[k.name]
         fn = recorder.orig[k.name]
+        if k.name == SAMPLER:
+            r = gumbel_call(torch, timer, *args, **kw)
+            emit({"phase": "replay", "kernel": k.name, **r})
+            lines.append({"name": k.name, "route": "cuda",
+                          "source": k.source, "replaces": k.replaces,
+                          "launches": launches[k.name],
+                          "tokens_differ": r["tokens_differ"],
+                          **{n: r[n] for n in ("ms", "device_ms", "plain_ms",
+                                               "bound_ms", "bound_by")},
+                          "library_ms": None})
+            continue
         r = replay_call(torch, k.name, args, kw, fn, timer,
                         "main-path inputs")
         extra = {}
@@ -1280,10 +1406,14 @@ def phase_main(torch, np, timer):
         fail(f"a kernel of the path did not launch: paged {l_p}, tree {l_t}")
     compare_modes(np, res_p, trace_p, res_t, trace_t)
     launches = {n: l_p[n] + l_t[n] for n in l_p}
-    phase_sampling(torch, np, models, prompts, timer)
+    (keys, logits, temp), sampled = phase_sampling(torch, np, models,
+                                                   prompts, timer)
+    recorder.best[SAMPLER] = (logits.numel(), [keys, logits],
+                              {"temperature": temp})
+    recorder.orig[SAMPLER] = ops.gumbel_sample
     phase_profile(torch, models, prompts)
-    return recorder, {"main": launches}, models, prompts, \
-        {"paged": res_p, "tree": res_t}
+    return recorder, {"main": launches, "sampled": sampled}, models, \
+        prompts, {"paged": res_p, "tree": res_t}
 
 
 # ---------------------------------------------------------------------------
@@ -3374,7 +3504,7 @@ def phase_expert_parallel(torch, np, smi, dev="cuda", shrink=None):
     if not row["sweep_all_to_all"] or row["sweep_all_to_all_off"]:
         fail(f"expert_parallel: all_to_all calls {row['sweep_all_to_all']} "
              f"with EP on, {row['sweep_all_to_all_off']} off")
-    if not all(launches.values()):
+    if not all(n for k, n in launches.items() if k != SAMPLER):
         fail(f"expert_parallel: a kernel of the path did not launch: "
              f"{launches}")
     del models, lm, lp, p, x, y, y_ref, runs

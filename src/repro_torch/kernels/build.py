@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_NAMES = ("paged_attention", "tree_attention", "flash_prefill")
+KERNEL_NAMES = ("paged_attention", "tree_attention", "flash_prefill",
+                "gumbel_sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

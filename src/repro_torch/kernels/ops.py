@@ -1,11 +1,12 @@
-"""Dispatch seam of the attention kernels (port of ``repro.kernels.ops``).
+"""Dispatch seam of the hand-written kernels (port of ``repro.kernels.ops``;
+the attention kernels, and the decode sampler's Gumbel-max draw).
 
-Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on
-the CPU, and for tensors on a CUDA device launches the hand-written
-kernel from ``csrc/`` or raises — it never falls back.  The kernel runs
-on ``torch.cuda.current_stream()``, allocates nothing itself (the
-wrapper allocates the output), and the wrapper raises if the launch
-reports an error.
+Each wrapper takes the plain PyTorch version (``ref.py``; the sampler's
+in ``serving/sampler.py``) for tensors on the CPU, and for tensors on a
+CUDA device launches the hand-written kernel from ``csrc/`` or raises —
+it never falls back. The kernel runs on ``torch.cuda.current_stream()``,
+allocates nothing itself (the wrapper allocates the output), and the
+wrapper raises if the launch reports an error.
 
 Every kernel keeps a plain launch counter (``Kernel.launches``) of its
 runs, so a run can show that its main path went through the kernels:
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import build
@@ -85,7 +87,10 @@ TREE = Kernel("tree_attention", [_P] * 11 + [_I] * 7 + [_F, _I, _P],
               "src/repro/kernels/tree_attention.py:217")
 FLASH = Kernel("flash_prefill", [_P] * 4 + [_I] * 7 + [_F, _I, _P],
                "src/repro/kernels/flash_prefill.py:98")
-KERNELS = (PAGED, TREE, FLASH)
+# no Pallas kernel: jax.random.categorical per row, which XLA fuses
+GUMBEL = Kernel("gumbel_sample", [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+                "src/repro/serving/sampler.py:28")
+KERNELS = (PAGED, TREE, FLASH, GUMBEL)
 
 
 def reset_launch_counts() -> None:
@@ -324,4 +329,70 @@ def flash_prefill(q, k, v, *, scale: float, causal: bool = True,
     FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, K, H // K, hd, int(bool(causal)), int(window),
                  float(scale), code, _stream(dev))
+    return out
+
+
+# The sampler's draw pass: columns per CTA at most (16 a thread of 256)
+# and at least (one a thread); between the two the chunk is cut so that
+# the grid holds GUMBEL_CTAS_PER_SM CTAs per SM over all rows.
+GUMBEL_MAX_CHUNK = 4096
+GUMBEL_MIN_CHUNK = 256
+GUMBEL_CTAS_PER_SM = 8
+
+
+def gumbel_chunk(rows: int, vocab: int, n_sm: int) -> int:
+    """Columns each CTA of ``gumbel_sample``'s draw pass takes for a
+    (rows, vocab) call on a card of ``n_sm`` SMs: a multiple of 8 (a
+    16-byte vector of bf16 logits) in [GUMBEL_MIN_CHUNK,
+    GUMBEL_MAX_CHUNK], small enough that rows x ceil(vocab / chunk) CTAs
+    fill the card where the call has that many columns."""
+    per_row = -(-GUMBEL_CTAS_PER_SM * n_sm // max(rows, 1))
+    chunk = -(-vocab // per_row)
+    chunk = -(-chunk // 8) * 8
+    return max(GUMBEL_MIN_CHUNK, min(GUMBEL_MAX_CHUNK, chunk))
+
+
+def gumbel_sample(keys, logits: torch.Tensor,
+                  temperature: float) -> torch.Tensor:
+    """One Gumbel-max draw per row: keys (R, 2) uint32 words (numpy or
+    anything ``np.asarray`` takes), logits (R, V) float32 or bfloat16,
+    contiguous, temperature > 0.  Returns (R,) int32 on the logits'
+    device: ``argmax(logits / temperature + gumbel(keys[r], V))`` per row.
+
+    On the CPU: the plain version (``serving.sampler.gumbel_argmax``).  On
+    a CUDA device: the draw pass and, when a row spans more than one
+    chunk, the merge pass (two launches, one count); the tokens equal the
+    plain version's on the same device bit for bit.
+    """
+    from ..serving import sampler
+    if logits.dim() != 2:
+        raise ValueError(f"logits must be (rows, vocab), got shape "
+                         f"{tuple(logits.shape)}")
+    R, V = logits.shape
+    if np.shape(keys) != (R, 2):
+        raise ValueError(f"{np.shape(keys)} keys for {R} rows")
+    code = _dtype_code(logits)
+    if not logits.is_contiguous():
+        raise ValueError("logits must be contiguous")
+    if not temperature > 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    k = sampler.as_keys(keys)
+    if _on_cpu(logits):
+        return sampler.gumbel_argmax(k, logits, temperature).to(torch.int32)
+    dev = logits.device
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    kt = torch.from_numpy(np.ascontiguousarray(k).view(np.int32)).to(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = gumbel_chunk(R, V, n_sm)
+    n_chunks = -(-V // chunk)
+    # (value, column) partials of the draw pass: float32 and int32
+    part = torch.empty(2 * R * n_chunks, dtype=torch.int32, device=dev)
+    # torch scales a float32 CUDA tensor by a Python scalar as a product
+    # with the float32 reciprocal: the plain version's logits / T
+    inv_t = float(np.float32(1.0) / np.float32(temperature))
+    GUMBEL.launch(logits.data_ptr(), kt.data_ptr(), out.data_ptr(),
+                  part.data_ptr(), part.data_ptr() + 4 * R * n_chunks, R, V,
+                  chunk, n_chunks, inv_t, code, _stream(dev))
     return out

@@ -10,13 +10,20 @@ Two parts:
 
   * host (numpy): the key chains — ``key``, ``fold_in``, ``split`` and
     ``split_rows`` (one split of every row's chain per decode step);
-  * device (plain PyTorch on the logits' device): ``gumbel`` draws a
-    row's noise from its key with counters ``(0, j)``, bits ``x0 ^ x1``,
-    ``u = bitcast((bits >> 9) | 0x3f800000) - 1``, ``u * (1 - tiny) +
-    tiny`` clamped at ``tiny`` and ``-log(-log(u))``, as
-    ``jax.random.gumbel`` does; ``sample_tokens_rowwise`` takes the
-    per-row argmax of ``logits / temperature + noise`` on the device and
-    moves only the B tokens to the host.
+  * device: ``sample_tokens_rowwise`` draws each row's token on the
+    logits' device and moves only the B tokens to the host.  At
+    temperature > 0 it goes through ``kernels.ops.gumbel_sample``: on a
+    CUDA device one hand-written kernel
+    (``kernels/csrc/gumbel_sample.cu``) computes the bits, the noise and
+    the row argmax in registers; on the CPU the plain version below
+    (``gumbel_argmax``), which is the kernel's oracle.  The plain
+    version, in PyTorch on the logits' device: ``gumbel`` draws a row's
+    noise from its key with counters ``(0, j)``, bits ``x0 ^ x1``, ``u =
+    bitcast((bits >> 9) | 0x3f800000) - 1``, ``u * (1 - tiny) + tiny``
+    clamped at ``tiny`` and ``-log(-log(u))``, as ``jax.random.gumbel``
+    does; ``gumbel_argmax`` takes the per-row argmax of ``logits /
+    temperature + noise``.  The kernel gives the plain version's tokens
+    on the same device bit for bit.
 
 What matches the reference: keys, bits and uniforms bit for bit; the
 noise within a few ulp (each ``log`` is computed in float64 and rounded
@@ -27,15 +34,17 @@ noise.  Greedy decoding (temperature <= 0) is a plain argmax.
 A row's token depends only on its own key chain and logits, never on
 which rows share the batch, so a sweep reproduces solo runs.
 
-Integer arithmetic: int64 lanes (numpy arrays or torch tensors) holding
-uint32 values, masked to 32 bits after every add and rotation.  Every
-op used (``+ & | ^ << >>``) exists for int64 on the CPU and on CUDA,
-which ``torch.uint32`` does not promise.
+Integer arithmetic of the plain version: int64 lanes (numpy arrays or
+torch tensors) holding uint32 values, masked to 32 bits after every add
+and rotation.  Every op used (``+ & | ^ << >>``) exists for int64 on the
+CPU and on CUDA, which ``torch.uint32`` does not promise.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels import ops
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -166,18 +175,26 @@ def gumbel(keys, n: int, device) -> torch.Tensor:
     return -_log(-_log(uniform(keys, n, device)))
 
 
+def gumbel_argmax(keys, logits: torch.Tensor,
+                  temperature: float) -> torch.Tensor:
+    """The plain version of ``kernels/csrc/gumbel_sample.cu``: keys (B, 2)
+    uint32, logits (B, V) -> (B,) int64 on the logits' device, the
+    per-row argmax of ``logits / temperature`` (in float32) plus
+    ``gumbel(keys, V)``."""
+    return torch.argmax(logits.float() / temperature
+                        + gumbel(keys, logits.shape[1], logits.device),
+                        dim=-1)
+
+
 def sample_tokens_rowwise(keys, logits: torch.Tensor,
                           temperature: float = 1.0) -> np.ndarray:
     """keys (B, 2) uint32 row keys, logits (B, V) -> (B,) int32 on the
     host: ``jax.random.categorical(keys[b], logits[b] / temperature)``
-    per row, computed on the logits' device.  temperature <= 0 means
-    greedy (``keys`` unused)."""
+    per row, computed on the logits' device (``ops.gumbel_sample``: the
+    kernel on a card, ``gumbel_argmax`` on the CPU).  temperature <= 0
+    means greedy (``keys`` unused)."""
     if temperature <= 0:
         tok = torch.argmax(logits, dim=-1)
     else:
-        B, V = logits.shape
-        if np.shape(keys) != (B, 2):
-            raise ValueError(f"{np.shape(keys)} keys for {B} rows")
-        tok = torch.argmax(logits.float() / temperature
-                           + gumbel(keys, V, logits.device), dim=-1)
+        tok = ops.gumbel_sample(keys, logits, temperature)
     return tok.to(torch.int32).cpu().numpy()

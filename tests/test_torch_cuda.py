@@ -5,13 +5,14 @@ on machines that have only the port's dependencies:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each CUDA kernel against its plain version on the card (tolerances of
-the reference's kernel tests), its launch counter, the sampler's known
-answers on the card, a tiny engine on the card against the same
-engine on the CPU (plain path), the decode forward replayed from CUDA
-graphs against the eager forward, and the plain-PyTorch paths of the
-families' training (MoE dispatch and combine, forward and backward) and
-of the contiguous cache, the card against the CPU; a 1-device-mesh
-engine and the expert-parallel MoE layer on a world-size-1 NCCL group.
+the reference's kernel tests; the sampler's kernel bit for bit), its
+launch counter, the sampler's known answers on the card, a tiny engine
+on the card against the same engine on the CPU (plain path), the decode
+forward replayed from CUDA graphs against the eager forward, and the
+plain-PyTorch paths of the families' training (MoE dispatch and combine,
+forward and backward) and of the contiguous cache, the card against the
+CPU; a 1-device-mesh engine and the expert-parallel MoE layer on a
+world-size-1 NCCL group.
 """
 import dataclasses
 
@@ -145,6 +146,78 @@ def test_sampler_known_answers_on_card(cuda):
     for seed, want in ((0, 73608), (7, 96183)):
         got = sampler.sample_tokens_rowwise(sampler.key(seed)[None], zeros)
         assert got.tolist() == [want]
+
+
+# (rows, vocab): the cells' 256 rows at qwen2-vl's and deepseek-moe's
+# vocab, 128 rows, an odd vocab whose rows start off 16-byte boundaries,
+# and one row at the Llama 3 vocab
+GUMBEL_SHAPES = [(256, 152064), (256, 102400), (128, 152064), (37, 4099),
+                 (1, 128256)]
+
+
+def _gumbel_logits(R, V, dtype, dev):
+    """Logits of scale 3 with planted rows where R >= 6: all zeros (pure
+    noise), exact ties at 1e30 (columns 9 and 10 in one 16-byte vector,
+    V // 2 and V - 1 in later chunks: 9 wins), a -inf tail past V // 3,
+    two NaNs (V // 2 wins), +inf at 7 and V - 2 (7 wins), all -inf (0
+    wins).  One row: zeros."""
+    rng = np.random.default_rng(R * 100003 + V)
+    x = 3 * rng.standard_normal((R, V), dtype=np.float32)
+    if R == 1:
+        x[0] = 0
+    if R >= 6:
+        x[0] = 0
+        x[1, [V - 1, V // 2, 10, 9]] = 1e30
+        x[2, V // 3:] = -np.inf
+        x[3, [V - 3, V // 2]] = np.nan
+        x[4, [V - 2, 7]] = np.inf
+        x[5] = -np.inf
+    return torch.as_tensor(x).to(dtype).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GUMBEL_SHAPES)
+def test_gumbel_kernel_matches_plain_bitwise(cuda, shape, dtype,
+                                             temperature):
+    """The sampler's kernel gives the plain version's tokens on the card
+    bit for bit, the same over three calls, one launch count a call."""
+    R, V = shape
+    keys = sampler.split(sampler.key(R + V), R)
+    logits = _gumbel_logits(R, V, dtype, cuda)
+    want = sampler.gumbel_argmax(keys, logits, temperature).to(torch.int32)
+    before = ops.GUMBEL.launches
+    outs = [ops.gumbel_sample(keys, logits, temperature) for _ in range(3)]
+    assert ops.GUMBEL.launches == before + 3
+    for got in outs:
+        assert got.dtype == torch.int32 and got.device == logits.device
+        bad = torch.nonzero(got != want).flatten().tolist()
+        if bad:
+            r = bad[0]
+            pert = (logits[r].float() / temperature
+                    + sampler.gumbel(keys[r:r + 1], V, cuda)[0])
+            a, b = int(got[r]), int(want[r])
+            pytest.fail(f"{len(bad)} rows differ, first {r}: kernel {a} "
+                        f"({pert[a].item()!r}), plain {b} "
+                        f"({pert[b].item()!r})")
+    if R >= 6:
+        assert outs[0][1:6].tolist() == [9, outs[0][2].item(), V // 2, 7, 0]
+        assert outs[0][2].item() < V // 3
+
+
+@pytest.mark.cuda
+def test_gumbel_kernel_launches_once_a_sampled_draw(cuda):
+    """``sample_tokens_rowwise`` launches the kernel once per sampled
+    draw and not at all when greedy."""
+    keys = sampler.split(sampler.key(3), 4)
+    logits = _rand((4, 1000), torch.bfloat16, cuda)
+    before = ops.GUMBEL.launches
+    sampler.sample_tokens_rowwise(keys, logits, 0.0)
+    assert ops.GUMBEL.launches == before
+    tok = sampler.sample_tokens_rowwise(keys, logits, 1.0)
+    assert ops.GUMBEL.launches == before + 1
+    assert tok.dtype == np.int32 and tok.shape == (4,)
 
 
 @pytest.mark.cuda

@@ -328,7 +328,70 @@ def test_wrappers_take_plain_version_on_cpu():
     _, k = _rand((1, 16, 2, 32))
     torch.testing.assert_close(ops.flash_prefill(q, k, k, scale=0.2),
                                flash_prefill_ref(q, k, k, scale=0.2))
-    assert [k.launches for k in ops.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in ops.KERNELS] == [0] * len(ops.KERNELS)
+
+
+def _gumbel_operands(R, V, dtype=torch.float32):
+    from repro_torch.serving import sampler
+    keys = sampler.split(sampler.key(R + V), R)
+    logits = torch.as_tensor(3 * RNG.normal(size=(R, V)),
+                             dtype=torch.float32).to(dtype)
+    return keys, logits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_gumbel_sample_takes_plain_version_on_cpu(dtype, temperature):
+    """CPU tensors go to the sampler's plain version: the same tokens as
+    int32, no launch."""
+    from repro_torch.serving import sampler
+    ops.reset_launch_counts()
+    keys, logits = _gumbel_operands(6, 301, dtype)
+    got = ops.gumbel_sample(keys, logits, temperature)
+    assert got.dtype == torch.int32 and got.shape == (6,)
+    want = sampler.gumbel_argmax(keys, logits, temperature)
+    assert torch.equal(got, want.to(torch.int32))
+    assert ops.GUMBEL.launches == 0
+
+
+@pytest.mark.parametrize("case", ["float16", "float64", "int32", "strided",
+                                  "keys_width", "keys_rows", "vector",
+                                  "temperature"])
+def test_gumbel_sample_checks_its_operands(case):
+    """The wrapper takes (R, V) float32 or bfloat16 logits, contiguous,
+    (R, 2) keys and a positive temperature, on either device."""
+    keys, logits = _gumbel_operands(4, 64)
+    temperature = 1.0
+    err = ValueError
+    if case in ("float16", "float64", "int32"):
+        logits, err = logits.to(getattr(torch, case)), TypeError
+    elif case == "strided":
+        logits = _gumbel_operands(4, 128)[1][:, ::2]
+    elif case == "keys_width":
+        keys = np.concatenate([keys, keys[:, :1]], axis=1)
+    elif case == "keys_rows":
+        keys = keys[:3]
+    elif case == "vector":
+        logits = logits[0]
+    else:
+        temperature = 0.0
+    with pytest.raises(err):
+        ops.gumbel_sample(keys, logits, temperature)
+
+
+@pytest.mark.parametrize("rows", [256, 128, 37, 4, 1])
+@pytest.mark.parametrize("vocab", [152064, 102400, 4099])
+def test_gumbel_chunk_fills_the_card(rows, vocab):
+    """The draw pass's chunk: a multiple of 8 within its limits, and the
+    grid fills a 132-SM card wherever the call has the columns for it."""
+    n_sm = 132
+    chunk = ops.gumbel_chunk(rows, vocab, n_sm)
+    assert chunk % 8 == 0
+    assert ops.GUMBEL_MIN_CHUNK <= chunk <= ops.GUMBEL_MAX_CHUNK
+    ctas = rows * -(-vocab // chunk)
+    if rows * vocab >= n_sm * ops.GUMBEL_MIN_CHUNK:
+        assert ctas >= n_sm
+    assert ctas == rows or chunk < vocab
 
 
 def test_kernel_sources_name_the_pallas_kernel_they_replace():
